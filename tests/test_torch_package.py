@@ -1,0 +1,184 @@
+"""Package-level rules of the port: it imports no JAX, its entry points do
+not carry on on the CPU by themselves, and a kernel wrapper given a CPU
+tensor takes its plain version."""
+
+import pkgutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import svi_mapper_tpu_torch
+from svi_mapper_tpu_torch import config
+from svi_mapper_tpu_torch.utils.device import resolve_device
+from svi_mapper_tpu_torch.utils.errors import ParameterError
+
+REPO = Path(__file__).resolve().parent.parent
+MODULES = sorted(
+    m.name for m in pkgutil.walk_packages(svi_mapper_tpu_torch.__path__,
+                                          "svi_mapper_tpu_torch."))
+
+
+def test_module_layout_mirrors_the_jax_package():
+    expected = {
+        "config", "convert", "geometry.se3", "geometry.linalg", "geometry.camera",
+        "ops.image", "ops.descriptors", "ops.corners", "ops.hamming",
+        "ops.track_kernel", "ops.stereo_kernel", "mapping.landmarks",
+        "frontend.epipolar", "frontend.tracking", "frontend.stereo",
+        "frontend.recovery", "solvers.posit", "solvers.landmark_opt",
+        "models.frame", "models.tracker", "io.synthetic", "utils.errors",
+    }
+    have = {m.removeprefix("svi_mapper_tpu_torch.") for m in MODULES}
+    assert expected <= have
+    for name in expected - {"convert"}:
+        assert (REPO / "svi_mapper_tpu" / (name.replace(".", "/") + ".py")).exists(), name
+    sources = sorted(p.name for p in (REPO / "svi_mapper_tpu_torch" / "csrc").glob("*.cu"))
+    assert sources == ["brief_dense.cu", "stereo_profiles.cu", "track_scores.cu"]
+
+
+def test_importing_every_module_leaves_jax_out():
+    """In a fresh interpreter: import every module of the port (and
+    chip_smoke.py's imports) and look at sys.modules."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {MODULES!r}:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "svi_mapper_tpu"))
+        assert not bad, bad
+        assert "triton" not in sys.modules
+        print("clean", len({MODULES!r}))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, text=True,
+                         capture_output=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("clean")
+
+
+def test_sources_name_no_jax_import():
+    files = list((REPO / "svi_mapper_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                head = s.split()[1].split(".")[0]
+                assert head not in ("jax", "jaxlib", "flax", "svi_mapper_tpu"), (path, s)
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this check is about a machine without a CUDA device")
+
+
+def test_entry_points_raise_without_device():
+    """``device=None`` means CUDA: with no CUDA device every entry point
+    raises instead of running on the CPU."""
+    _no_cuda()
+    from svi_mapper_tpu_torch.io.synthetic import default_camera
+    from svi_mapper_tpu_torch.mapping.landmarks import make_table
+    from svi_mapper_tpu_torch.models import frame
+    from svi_mapper_tpu_torch.models.tracker import StereoTracker
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        config.load_stereo_camera("kitti_00_camera_left.txt", "kitti_00_camera_right.txt")
+    with pytest.raises(RuntimeError):
+        frame.init_state(config.DEFAULT_PARAMS)
+    with pytest.raises(RuntimeError):
+        make_table(8, 4)
+    with pytest.raises(RuntimeError):
+        default_camera()
+    cam = default_camera(128, 64, device="cpu")
+    with pytest.raises(RuntimeError):
+        StereoTracker(cam)
+    state = frame.init_state(config.DEFAULT_PARAMS, device="cpu")
+    img = np.zeros((64, 128), np.float32)
+    with pytest.raises(RuntimeError):
+        frame.process_frame(state, img, img, cam, config.DEFAULT_PARAMS)
+    with pytest.raises(RuntimeError):
+        frame.process_chunk(state, img[None], img[None], cam, config.DEFAULT_PARAMS)
+
+
+def test_device_mismatch_rejected():
+    from svi_mapper_tpu_torch.io.synthetic import default_camera
+    from svi_mapper_tpu_torch.models import frame
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    cam = default_camera(128, 64, device="cpu")
+    state = frame.init_state(config.DEFAULT_PARAMS, device="cpu")
+    assert state.device == cam.device == torch.device("cpu")
+    assert state.table.device.type == "cpu"
+
+
+def test_wrappers_take_plain_version_on_cpu(rng):
+    from svi_mapper_tpu_torch.ops import descriptors, stereo_kernel, track_kernel
+
+    img = torch.from_numpy(rng.uniform(0, 255, (48, 80)).astype(np.float32))
+    n0 = (descriptors.brief_dense_fused_launches, track_kernel.track_scores_launches,
+          stereo_kernel.stereo_profiles_launches)
+    fused = descriptors.brief_dense_fused(img)
+    assert torch.equal(fused, descriptors.smooth_brief_dense_plain(img))
+    assert torch.equal(fused, descriptors.smooth_brief_dense(img))
+    assert fused.dtype == torch.int32 and fused.shape == (48, 80, 8)
+    assert n0 == (descriptors.brief_dense_fused_launches,
+                  track_kernel.track_scores_launches,
+                  stereo_kernel.stereo_profiles_launches)
+    with pytest.raises(ValueError):
+        descriptors.brief_dense_fused(img.to(torch.float64))
+
+
+def test_kernel_build_needs_a_compiler():
+    """Nothing hides a missing toolchain: loading the kernels without nvcc
+    raises (and never falls back)."""
+    from svi_mapper_tpu_torch.ops import cuda_build
+
+    import shutil
+    if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("a CUDA compiler is installed here")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_build.load_library()
+    assert [p.name for p in cuda_build.sources()] == [
+        "brief_dense.cu", "stereo_profiles.cu", "track_scores.cu"]
+    assert set(cuda_build._SIGNATURES) == {
+        "svi_track_scores", "svi_stereo_profiles", "svi_brief_dense_fused"}
+
+
+def test_calibration_parser_matches_jax_package():
+    from svi_mapper_tpu import config as jconfig
+
+    for stem in ("kitti_00_camera", "kitti_11_12_camera", "vi_sensor_camera"):
+        for side in ("left", "right"):
+            name = f"{stem}_{side}.txt"
+            a = config.load_camera_calibration(name)
+            b = jconfig.load_camera_calibration(name)
+            assert (a.width, a.height, a.has_imu) == (b.width, b.height, b.has_imu)
+            for f in ("K", "dist", "R_rect", "P"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    cam = config.load_stereo_camera("kitti_00_camera_left.txt",
+                                    "kitti_00_camera_right.txt", device="cpu")
+    jcam = jconfig.load_stereo_camera("kitti_00_camera_left.txt",
+                                      "kitti_00_camera_right.txt")
+    np.testing.assert_array_equal(cam.right.P.numpy(), np.asarray(jcam.right.P))
+    assert (cam.width, cam.height) == (1241, 376)
+    assert cam.baseline == pytest.approx(float(jcam.baseline), abs=1e-7)
+    assert config.DEFAULT_PARAMS == config.TrackingParams()
+    import dataclasses
+    assert dataclasses.asdict(config.DEFAULT_PARAMS) == dataclasses.asdict(
+        jconfig.DEFAULT_PARAMS)
+
+
+def test_calibration_errors(tmp_path):
+    with pytest.raises(ParameterError):
+        config.load_camera_calibration(tmp_path / "missing.txt")
+    bad = tmp_path / "bad.txt"
+    bad.write_text("uWidthPixels 10\nuHeightPixels 10\n")
+    with pytest.raises(ParameterError):
+        config.load_camera_calibration(bad)
