@@ -4,22 +4,30 @@
     python3 chip_smoke.py [--profile]
 
 (``--profile`` adds a ``torch.profiler`` breakdown of four warm frames to the
-main-path line.) Needs one CUDA card, ``nvcc`` and nothing from the network. It
+main-path line and of ten LM iterations to the map-optimisation line.) Needs one CUDA card, ``nvcc`` and nothing from the network. It
 
 1. names the card (``nvidia-smi`` name and power limit);
 2. builds the hand-written CUDA kernels from ``svi_mapper_tpu_torch/csrc``;
-3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path (376x1248 field, 1024 landmarks / keypoints,
-   128 disparities) and at one ragged small shape — exact equality — and
-   times kernel and plain version with CUDA events;
+3. holds each kernel against its plain PyTorch version on the card and
+   times kernel and plain version with CUDA events: the front-end kernels
+   at the shapes of the main path (376x1248 field, 1024 landmarks /
+   keypoints, 128 disparities) and at two ragged small shapes, exact
+   equality; the two Schur-assembly kernels at (K, L) = (8, 640),
+   (32, 4096), (5, 1000) and (64, 4096), (128, 4096), within the stated
+   relative tolerances, and both against the plain version in float64;
 4. compares the port on the card with the port on the CPU (plain versions)
-   on a short small sequence, SV and GT mode;
-5. drives the main path: the KITTI-00 calibration at 376x1241 with
-   ``DEFAULT_PARAMS``, 24 frames through ``StereoTracker.process`` and 16
-   through ``process_many(chunk=8)``, frames rendered on the card by the
-   port's corridor renderer, and checks pose acceptance, track counts, the
-   trajectory error against the exact ground truth, and that every kernel
-   was launched by that run.
+   on a short small sequence, SV and GT mode, and on a small BA window and
+   pose graph;
+5. drives the main paths. The front-end: the KITTI-00 calibration at
+   376x1241 with ``DEFAULT_PARAMS``, 24 frames through
+   ``StereoTracker.process`` and 16 through ``process_many(chunk=8)``,
+   frames rendered on the card by the port's corridor renderer; checks pose
+   acceptance, track counts, the trajectory error against the exact ground
+   truth. The map optimisation: ``prepare_ba_window`` -> ``bundle_adjust``
+   at 32 / 64 / 128 keyframes x 4096 landmarks, ``optimize_pose_graph`` at
+   680 keyframes, ``align_clouds_batch`` at 4 x 256; checks that chi^2
+   falls and the errors against the generating truth. Each path must have
+   launched its kernels.
 
 Every phase prints one line of JSON. Any failure raises, so the exit code
 is non-zero and the final line is not printed. The last line is
@@ -317,6 +325,9 @@ def check_track_scores_planted(device, h: int, w: int, n: int) -> dict:
             "rejected_at_cutoff": int(((d_ref > 50) | (d_last > 50)).sum())}
 
 
+FRONTEND_KERNELS = ("track_scores", "stereo_profiles", "brief_dense_fused")
+BACKEND_KERNELS = ("schur_assemble", "schur_assemble_tiled")
+
 KERNEL_FACTS = {
     "track_scores": dict(
         route="cuda", source="svi_mapper_tpu_torch/csrc/track_scores.cu",
@@ -327,23 +338,43 @@ KERNEL_FACTS = {
     "brief_dense_fused": dict(
         route="cuda", source="svi_mapper_tpu_torch/csrc/brief_dense.cu",
         replaces="svi_mapper_tpu/ops/descriptors.py:208"),
+    "schur_assemble": dict(
+        route="cuda", source="svi_mapper_tpu_torch/csrc/schur_assemble.cu",
+        replaces="svi_mapper_tpu/ops/ba_kernel.py:251"),
+    "schur_assemble_tiled": dict(
+        route="cuda", source="svi_mapper_tpu_torch/csrc/schur_assemble.cu",
+        replaces="svi_mapper_tpu/ops/ba_kernel.py:445"),
 }
 
 
 def launch_counts() -> dict:
-    from svi_mapper_tpu_torch.ops import descriptors, stereo_kernel, track_kernel
+    from svi_mapper_tpu_torch.ops import (
+        ba_kernel,
+        descriptors,
+        stereo_kernel,
+        track_kernel,
+    )
 
     return {"track_scores": track_kernel.track_scores_launches,
             "stereo_profiles": stereo_kernel.stereo_profiles_launches,
-            "brief_dense_fused": descriptors.brief_dense_fused_launches}
+            "brief_dense_fused": descriptors.brief_dense_fused_launches,
+            "schur_assemble": ba_kernel.schur_assemble_launches,
+            "schur_assemble_tiled": ba_kernel.schur_assemble_tiled_launches}
 
 
 def reset_launch_counts() -> None:
-    from svi_mapper_tpu_torch.ops import descriptors, stereo_kernel, track_kernel
+    from svi_mapper_tpu_torch.ops import (
+        ba_kernel,
+        descriptors,
+        stereo_kernel,
+        track_kernel,
+    )
 
     track_kernel.track_scores_launches = 0
     stereo_kernel.stereo_profiles_launches = 0
     descriptors.brief_dense_fused_launches = 0
+    ba_kernel.schur_assemble_launches = 0
+    ba_kernel.schur_assemble_tiled_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -465,7 +496,8 @@ def run_main_path(device, profile: bool = False) -> tuple[dict, dict]:
             "traj.shape == (n, 4, 4) and np.isfinite(traj).all()")
     ate = ate_rmse(traj, poses)
     require(ate < 0.10, f"ATE {ate} m against the exact ground truth")
-    require(all(c > 0 for c in counts.values()), f"kernel not launched: {counts}")
+    require(all(counts[k] > 0 for k in FRONTEND_KERNELS),
+            f"kernel not launched: {counts}")
     st = tracker.state
     tensors = [st.T_wc, st.T_wc_prev, st.T_last_keyframe, st.next_uid,
                st.frame_idx, st.instability]
@@ -497,7 +529,7 @@ def run_main_path(device, profile: bool = False) -> tuple[dict, dict]:
         "process_frames_per_s": len(warm) / float(np.sum(warm)),
         "process_many_ms_per_frame": 1e3 * chunked_s / n_chunked,
         "process_many_frames_per_s": n_chunked / chunked_s,
-        "launches_per_frame": {k: v / n for k, v in counts.items()},
+        "launches_per_frame": {k: counts[k] / n for k in FRONTEND_KERNELS},
         "host_syncs_per_frame": syncs,
     }
     if profile:
@@ -540,6 +572,531 @@ def profile_frames(tracker, imgs_l, imgs_r, unprofiled_ms_per_frame: float,
         "top_kernels": [{"name": r[0][:80], "ms_per_frame": r[1] / n,
                          "calls_per_frame": r[2] / n} for r in rows[:12]],
     }
+
+
+# ---------------------------------------------------------------------------
+# the Schur-assembly kernels (K4, K5) against their plain versions
+# ---------------------------------------------------------------------------
+
+BA_WIDTH, BA_HEIGHT = 1241, 376
+BA_LANDMARKS = 4096
+# the tolerances of the CPU tests: relative to the largest entry of the
+# plain version's output; rhs cancels, so it is held against 100 x max|b_l|.
+# The largest entries of Hll_inv are the unobserved landmarks' 1 / damping,
+# a thousand times an observed landmark's, so Hll_inv is held per landmark
+# as well, each 3x3 block against its own largest entry: 5e-3, because the
+# cofactors cancel (float32 alone is up to 8e-4 from float64 on a weakly
+# observed landmark); a wrong block is off by its own size
+SCHUR_NAMES = ("S", "rhs", "Hll_inv", "b_l", "W")
+SCHUR_TOL = dict(S=2e-4, rhs=5e-3, Hll_inv=2e-4, b_l=2e-4, W=2e-4,
+                 Hll_inv_block=5e-3)
+# float operations per (keyframe, landmark) of the shared body, counted from
+# csrc/schur_assemble.cu: point 18, projection and residuals 31, weight 8,
+# Jacobian rows 24 + 36 + 60, H_ll/b_l 63, W rows 126, H_pp/b_p 189
+FLOPS_PER_OBSERVATION = 555
+
+
+def ba_problem(K: int, L: int, seed: int, noise: float = 0.5,
+               point_noise: float = 0.2, hard: bool = False):
+    """A forward-moving window over a box of landmarks (numpy): keyframes
+    ``32 / K`` m apart, so that every keyframe of every window size sees the
+    box; stereo observations with ``noise`` px, masked to the image; the
+    landmark estimates perturbed by ``point_noise`` m. With ``hard``: 20 %
+    of the observations dropped, seven landmarks never observed, five
+    unmasked observations of points behind or almost in the plane of the
+    camera (z below 0.05 and below 1e-6), so that every branch of the
+    assembly runs."""
+    import numpy as np
+
+    from svi_mapper_tpu_torch.io.synthetic import default_camera
+
+    cam = default_camera(BA_WIDTH, BA_HEIGHT, device="cpu")
+    fx, fy, cx, cy, bq = (cam.left.fx, cam.left.fy, cam.left.cx, cam.left.cy,
+                          cam.right.p03)
+    rng = np.random.default_rng(seed)
+    step = np.float32(min(1.0, 32.0 / K))
+    X = rng.uniform([-20, -2, 5], [20, 2, 60], (L, 3)).astype(np.float32)
+    T = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    T[:, 2, 3] = -np.arange(K, dtype=np.float32) * step
+    p_c = np.einsum("kij,lj->kli", T[:, :3, :3], X) + T[:, None, :3, 3]
+    z = p_c[..., 2]
+    zs = np.where(np.abs(z) < 1e-3, 1e-3, z)
+    u_l = fx * p_c[..., 0] / zs + cx
+    v_l = fy * p_c[..., 1] / zs + cy
+    u_r = (fx * p_c[..., 0] + bq) / zs + cx
+    obs = np.stack([u_l, v_l, u_r, v_l], -1) + rng.normal(0, noise, (K, L, 4))
+    mask = ((z > 1.0) & (u_l > 0) & (u_l < BA_WIDTH) & (v_l > 0)
+            & (v_l < BA_HEIGHT))
+    X0 = X + rng.normal(0, point_noise, X.shape).astype(np.float32)
+    if hard:
+        mask &= rng.random((K, L)) > 0.2
+        mask[:, :7] = False
+        k_near = max(K - 2, 0)
+        X0[7:12, 2] = step * k_near + np.array([-0.3, 0.0, 0.03, 0.06, 1e-7],
+                                               np.float32)
+        mask[:, 7:12] = True
+    fix = np.zeros(K, bool)
+    fix[0] = True
+    return dict(T=T, X_true=X, X0=X0.astype(np.float32),
+                obs=np.clip(obs, -1e4, 1e4).astype(np.float32), mask=mask,
+                fix=fix, intr=(fx, fy, cx, cy, bq))
+
+
+def schur_errors(got, want) -> dict:
+    """Per output: max |got - want| over the scale its tolerance names."""
+    import torch
+
+    scale_rhs = float(torch.max(torch.abs(want[3]))) * 100
+    out = {}
+    for nm, a, b in zip(SCHUR_NAMES, got, want):
+        scale = scale_rhs if nm == "rhs" else max(float(torch.max(torch.abs(b))), 1e-9)
+        out[nm] = float(torch.max(torch.abs(a.double() - b.double()))) / scale
+    block_scale = want[2].double().abs().amax((1, 2)).clamp(min=1e-30)
+    out["Hll_inv_block"] = float(torch.max(
+        (got[2].double() - want[2].double()).abs().amax((1, 2)) / block_scale))
+    return out
+
+
+def ptxas_report(source: str, marker: str) -> list[dict]:
+    """Registers, shared memory and spills of the kernels of one source, as
+    ``ptxas -v`` printed them during this run's build ([] when the library
+    was already built)."""
+    import re
+
+    from svi_mapper_tpu_torch.ops import cuda_build
+
+    rows, name = [], None
+    for line in cuda_build.build_log.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # the plain name out of the mangled one, with its template value
+            plain = re.search(r"\d+([a-z_]+kernel)(?:ILi(\d+)E)?", m.group(1))
+            name = (plain.group(1) + (f"<{plain.group(2)}>" if plain.group(2) else "")
+                    if plain else m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            rows.append(dict(kernel=name, stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3))))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and rows[-1]["kernel"] == name:
+            rows[-1]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["static_smem"] = int(s.group(1)) if s else 0
+    return [r for r in rows if marker in r["kernel"]]
+
+
+def check_schur_kernel(device, name: str, K: int, L: int, timed: bool) -> dict:
+    import torch
+
+    from svi_mapper_tpu_torch.ops import ba_kernel
+
+    fn, plain = {
+        "schur_assemble": (ba_kernel.schur_assemble, ba_kernel.schur_assemble_plain),
+        "schur_assemble_tiled": (ba_kernel.schur_assemble_tiled,
+                                 ba_kernel.schur_assemble_tiled_plain),
+    }[name]
+    p = ba_problem(K, L, seed=23 + K, noise=1.5, point_noise=0.1, hard=True)
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    args = (to(p["T"]), to(p["X0"]), to(p["obs"]), to(p["mask"].astype("float32")))
+    kw = dict(zip(("fx", "fy", "cx", "cy", "bq"), p["intr"]))
+    lam = 1e-3
+    got = fn(*args, lam, **kw)
+    torch.cuda.synchronize()
+    again = fn(*args, lam, **kw)
+    want32 = plain(*args, lam, **kw)
+    want64 = plain(*[a.double() for a in args], lam, **kw)
+    torch.cuda.synchronize()
+    require(all(torch.isfinite(g).all() for g in got), f"{name}: non-finite output")
+    require(got[0].shape == (K, 6, K, 6) and got[4].shape == (3, 6 * K, L),
+            f"{name}: output shapes")
+    err = schur_errors(got, want32)
+    bad = {nm: float(f"{e:.3e}") for nm, e in err.items() if not e < SCHUR_TOL[nm]}
+    require(not bad, f"{name} K={K} L={L}: off by {bad}")
+    # the inputs reach every branch
+    pc_z = (torch.einsum("kij,lj->kli", args[0][:, :3, :3], args[1])
+            + args[0][:, None, :3, 3])[..., 2]
+    seen = args[3] > 0
+    require(bool(((pc_z < 0.05) & seen).any()) and bool(((pc_z.abs() < 1e-6) & seen).any()),
+            "no observation behind / in the plane of the camera")
+    require(bool((~seen.any(0)).any()), "no unobserved landmark")
+    require(float(got[4][:, :, :7].abs().max()) == 0.0, "W of an unobserved landmark")
+    # an unobserved landmark: 1 / (lam + point_damping) on the diagonal
+    unseen_inv = got[2][~seen.any(0)].double() * (lam + 1e-6)
+    require(float((unseen_inv - torch.eye(3, device=device, dtype=torch.float64))
+                  .abs().max()) < 1e-5, "Hll_inv of an unobserved landmark")
+    out = dict(
+        name=name, K=K, L=L, rel_err_vs_plain=err,
+        max_abs_err=float(torch.max(torch.abs(got[0] - want32[0]))),
+        rel_err_vs_float64=dict(kernel=schur_errors(got, want64),
+                                plain=schur_errors(want32, want64)),
+        # per-block partials are added in a fixed order: no run-to-run change
+        same_bits_twice=all(torch.equal(a, b) for a, b in zip(got, again)))
+    require(out["same_bits_twice"], f"{name}: two runs differ")
+    if timed:
+        out["ms"] = time_ms(lambda: fn(*args, lam, **kw), 50)
+        # the launch alone (allocations + the kernel), without the PyTorch
+        # work the wrapper does behind it
+        cam_scalars = (*p["intr"], 10.0)
+        if name == "schur_assemble":
+            out["launch_only_ms"] = time_ms(lambda: ba_kernel.launch_schur_assemble(
+                *args, lam, cam_scalars, 1e-6), 50)
+        else:
+            out["launch_only_ms"] = time_ms(
+                lambda: ba_kernel.launch_schur_assemble_tiled(*args, cam_scalars), 50)
+        out["plain_ms"] = time_ms(lambda: plain(*args, lam, **kw), 3, 1)
+        obs_flops = K * L * FLOPS_PER_OBSERVATION
+        moved_in = 4 * (16 * K + 3 * L + 5 * K * L)
+        w_planes = 4 * 18 * K * L
+        if name == "schur_assemble":
+            # out: S, rhs, Hll_inv, b_l, W; the C planes and the product run
+            # in the kernel. W Hll^-1 W^T is symmetric: what the function
+            # needs is its upper triangle of 6x6 blocks, K (K + 1) / 2 of
+            # them. The kernel forms all K^2 (flops_executed).
+            moved = moved_in + 4 * (36 * K * K + 6 * K + 12 * L) + w_planes
+            c_planes = 15 * 6 * K * L
+            flops = obs_flops + c_planes + 2 * 36 * (K * (K + 1) // 2) * 3 * L
+            out["flops_executed"] = obs_flops + c_planes + 2 * (6 * K) ** 2 * 3 * L
+        else:
+            # the kernel's own outputs: per-tile partial H_ll/b_l, H_pp, b_p, W
+            moved = moved_in + 4 * (9 * L * (K // 32) + 42 * K) + w_planes
+            flops = obs_flops
+            C = ba_kernel._c_planes(got[4], got[2])
+            H_pp = torch.zeros((K, 6, 6), device=device)
+            out["product_matmul_ms"] = time_ms(
+                lambda: ba_kernel._schur_from_planes(H_pp, C, got[4]), 20)
+            out["product_flops"] = 2 * (6 * K) ** 2 * 3 * L
+        out["bytes"], out["flops"] = moved, flops
+        out["bound_ms"], out["bound_by"] = bound(moved, flops)
+    return out
+
+
+def check_backend_kernels(device) -> list[dict]:
+    shapes = [("schur_assemble", 8, 640, False), ("schur_assemble", 5, 1000, False),
+              ("schur_assemble", 32, BA_LANDMARKS, True),
+              ("schur_assemble_tiled", 64, BA_LANDMARKS, True),
+              ("schur_assemble_tiled", 128, BA_LANDMARKS, True)]
+    return [check_schur_kernel(device, *s) for s in shapes]
+
+
+# ---------------------------------------------------------------------------
+# the map-optimisation path
+# ---------------------------------------------------------------------------
+
+def ba_window_on_card(device, K: int):
+    """The window of ``ba_problem(K, 4096, seed=3)`` on the card: ``(p, t,
+    cam, run)``, where ``run(n)`` takes it through ``prepare_ba_window`` and
+    ``n`` LM iterations of ``bundle_adjust``."""
+    from svi_mapper_tpu_torch import convert
+    from svi_mapper_tpu_torch.io.synthetic import default_camera
+    from svi_mapper_tpu_torch.solvers import ba, ba_prep
+
+    cam = default_camera(BA_WIDTH, BA_HEIGHT, device=device)
+    p = ba_problem(K, BA_LANDMARKS, seed=3)
+    t = convert.ba_problem_from_numpy(
+        dict(T_wc=p["T"], points_w=p["X0"], obs_uv=p["obs"], obs_mask=p["mask"],
+             fix_mask=p["fix"]), device=device)
+
+    def run(n_it):
+        prep = ba_prep.prepare_ba_window(t["T_wc"], t["obs_uv"], t["obs_mask"],
+                                         t["points_w"], cam, device=device)
+        res = ba.bundle_adjust(
+            t["T_wc"], prep.X0, t["obs_uv"], prep.mask, cam, t["fix_mask"],
+            obs_w=prep.obs_w, max_iterations=n_it, min_rel_improvement=0.0,
+            device=device)
+        return prep, res
+
+    return p, t, cam, run
+
+
+def run_bundle_adjust(device, K: int, iterations: int) -> dict:
+    """``prepare_ba_window`` -> ``bundle_adjust`` -> ``reprojection_stats``
+    on the window of ``ba_problem(K, 4096, seed=3)``."""
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch.solvers import ba
+
+    name = "schur_assemble" if K <= ba.SCHUR_KERNEL_MAX_K else "schur_assemble_tiled"
+    require(ba.schur_kernel_auto(K, torch.float32, device), f"K={K} takes no kernel")
+    p, t, cam, run = ba_window_on_card(device, K)
+    run(2)                                             # warm-up
+    torch.cuda.synchronize()
+    before = launch_counts()[name]
+    t0 = time.perf_counter()
+    prep, res = run(iterations)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()[name] - before
+    its = int(res.iterations)
+    err2, depth = ba.reprojection_stats(res.T_wc, res.points_w, t["obs_uv"],
+                                        prep.mask, cam, device=device)
+
+    chi0, chi1 = float(res.chi2_initial), float(res.chi2_final)
+    require(its == iterations, f"K={K}: {its} LM iterations of {iterations}")
+    require(launches == its, f"K={K}: {launches} launches of {name} in {its} iterations")
+    require(np.isfinite(chi1) and chi1 < 0.2 * chi0, f"K={K}: chi2 {chi0} -> {chi1}")
+    T_est = res.T_wc.cpu().numpy()
+    pose_err = float(np.abs(T_est[:, :3, 3] - p["T"][:, :3, 3]).max())
+    rot_err = float(np.abs(T_est[:, :3, :3] - p["T"][:, :3, :3]).max())
+    seen = prep.mask.any(0).cpu().numpy()
+    X_err = np.linalg.norm(res.points_w.cpu().numpy() - p["X_true"], axis=1)[seen]
+    X0_err = np.linalg.norm(p["X0"] - p["X_true"], axis=1)[seen]
+    require(pose_err < 0.05 and rot_err < 5e-3,
+            f"K={K}: pose error {pose_err} m / {rot_err}")
+    require(float(np.median(X_err)) < 0.5 * float(np.median(X0_err)),
+            f"K={K}: median point error {np.median(X_err)} m")
+    require(np.array_equal(T_est[0], p["T"][0]) or
+            float(np.abs(T_est[0] - p["T"][0]).max()) < 1e-6, "gauge pose moved")
+    require(bool(torch.isfinite(err2).all()), "reprojection_stats not finite")
+    return dict(
+        K=K, L=BA_LANDMARKS, kernel=name, iterations=its, launches=launches,
+        launches_per_iteration=launches / its, seconds=seconds,
+        lm_iterations_per_s=its / seconds, ms_per_iteration=1e3 * seconds / its,
+        chi2_initial=chi0, chi2_final=chi1, n_obs=int(prep.n_obs),
+        n_gated=int(prep.n_gated), n_reinit=int(prep.n_reinit),
+        pose_err_m=pose_err, rot_err=rot_err,
+        median_point_err_m=float(np.median(X_err)),
+        median_point_err_before_m=float(np.median(X0_err)),
+        median_reproj_err_px2=float(err2[torch.from_numpy(seen).to(device)].median()),
+        min_depth_m=float(depth[torch.isfinite(depth)].min()))
+
+
+def exp_se3_np(xi):
+    """float64 SE(3) exponential of a twist ``[rho, phi]`` (numpy)."""
+    import torch
+
+    from svi_mapper_tpu_torch.geometry import se3
+
+    return se3.exp_se3(torch.as_tensor(xi, dtype=torch.float64)).numpy()
+
+
+def ring_graph(n: int, seed: int, noise: float = 0.004, overlap: int = 60):
+    """A ring driven a little more than once, so that the last ``overlap``
+    keyframes revisit the first: true poses, an odometry estimate that
+    drifts, sequential edges measured on the estimate and one exact closure
+    edge for every fifth revisiting keyframe (numpy)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    turn = 2 * np.pi / (n - overlap)
+    d = exp_se3_np([0, 0, 0.8, 0, turn, 0])
+    T_true = [np.eye(4)]
+    for _ in range(1, n):
+        T_true.append(d @ T_true[-1])
+    T_true = np.stack(T_true)
+    T_est = [T_true[0]]
+    for k in range(1, n):
+        M = T_true[k] @ np.linalg.inv(T_true[k - 1])
+        T_est.append(exp_se3_np(rng.normal(0, noise, 6)) @ M @ T_est[-1])
+    T_est = np.stack(T_est)
+    ei, ej = list(range(n - 1)), list(range(1, n))
+    Ms = [T_est[k] @ np.linalg.inv(T_est[k - 1]) for k in range(1, n)]
+    for i in range(0, overlap, 5):
+        j = n - overlap + i
+        ei.append(i)
+        ej.append(j)
+        Ms.append(T_true[j] @ np.linalg.inv(T_true[i]))
+    E = len(ei)
+    edges = dict(i=np.asarray(ei, np.int32), j=np.asarray(ej, np.int32),
+                 T_ij=np.stack(Ms).astype(np.float32),
+                 weight=np.ones(E, np.float32), valid=np.ones(E, bool))
+    fix = np.zeros(n, bool)
+    fix[0] = True
+    return T_true.astype(np.float32), T_est.astype(np.float32), edges, fix
+
+
+def end_point_error(T_est, T_true) -> float:
+    import numpy as np
+
+    c = lambda T: -T[:3, :3].T @ T[:3, 3]  # noqa: E731
+    return float(np.linalg.norm(c(np.asarray(T_est[-1], np.float64))
+                                - c(np.asarray(T_true[-1], np.float64))))
+
+
+def run_pose_graph(device, n: int = 680) -> dict:
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch import convert
+    from svi_mapper_tpu_torch.solvers import pose_graph
+
+    T_true, T_est, edges_np, fix = ring_graph(n, seed=7)
+    edges = convert.pose_graph_edges_from_numpy(edges_np, device=device)
+    T0 = torch.from_numpy(T_est).to(device)
+    fixm = torch.from_numpy(fix).to(device)
+    pose_graph.optimize_pose_graph(T0, edges, fixm, max_iterations=2, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pose_graph.optimize_pose_graph(T0, edges, fixm, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    T_opt = res.T_wc.cpu().numpy()
+    e0, e1 = end_point_error(T_est, T_true), end_point_error(T_opt, T_true)
+    chi0, chi1 = float(res.chi2_initial), float(res.chi2_final)
+    require(np.isfinite(T_opt).all() and T_opt.shape == (n, 4, 4), "pose graph output")
+    require(chi1 < 0.01 * chi0, f"pose graph chi2 {chi0} -> {chi1}")
+    # the closures tie the end of the ring to its first keyframes, whose own
+    # heading drift stays (only keyframe 0 is fixed): the end point comes
+    # back by about half, not to zero
+    require(e1 < 0.7 * e0, f"pose graph end point {e0} -> {e1} m")
+    require(float(np.abs(T_opt[0] - T_est[0]).max()) < 1e-6, "gauge pose moved")
+    its = int(res.iterations)
+    return dict(n=n, edges=int(edges.i.shape[0]), iterations=its, ms=1e3 * seconds,
+                ms_per_iteration=1e3 * seconds / max(its, 1),
+                chi2_initial=chi0, chi2_final=chi1,
+                end_point_err_before_m=e0, end_point_err_after_m=e1,
+                ate_rmse_before_m=ate_rmse(T_est, T_true),
+                ate_rmse_after_m=ate_rmse(T_opt, T_true))
+
+
+def run_icp(device, batch: int = 4, points: int = 256) -> dict:
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch.solvers import icp
+
+    rng = np.random.default_rng(11)
+    p_ref = np.stack([rng.uniform(-15, 15, (batch, points)),
+                      rng.uniform(-3, 3, (batch, points)),
+                      rng.uniform(5, 60, (batch, points))], -1)
+    T_true = np.stack([exp_se3_np(rng.normal(0, [0.5, 0.3, 0.8, 0.03, 0.06, 0.02]))
+                       for _ in range(batch)])
+    p_q = np.einsum("bij,bnj->bni", T_true[:, :3, :3], p_ref) + T_true[:, None, :3, 3]
+    p_q += rng.normal(0, 0.02, p_q.shape)
+    p_q[:, :40] += 30.0                                  # gross outliers
+    valid = np.ones((batch, points), bool)
+    valid[:, -16:] = False
+    valid[3, 20:] = False                                # 20 points: under the gate
+    to = lambda a, dt: torch.from_numpy(a.astype(dt)).to(device)  # noqa: E731
+    args = (to(p_q, np.float32), to(p_ref, np.float32), to(valid, bool))
+    icp.align_clouds_batch(*args, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = icp.align_clouds_batch(*args, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ok = res.ok.cpu().numpy()
+    T = res.T_qr.cpu().numpy()
+    err = float(np.abs(T[:3] - T_true[:3]).max())
+    require(ok[:3].all() and not ok[3], f"ICP gates: {ok}")
+    require(err < 0.05, f"ICP transform error {err}")
+    # each candidate alone gives what it gives in the batch
+    for b in range(batch):
+        one = icp.align_clouds(args[0][b], args[1][b], args[2][b], device=device)
+        require(int(one.iterations) == int(res.iterations[b]),
+                f"ICP candidate {b}: iterations {int(one.iterations)} alone, "
+                f"{int(res.iterations[b])} in the batch")
+        require(float((one.T_qr - res.T_qr[b]).abs().max()) < 1e-4,
+                f"ICP candidate {b}: batch and single differ")
+    return dict(batch=batch, points=points, ms=1e3 * seconds,
+                iterations=res.iterations.cpu().tolist(),
+                inliers=res.inliers.cpu().tolist(), ok=ok.tolist(),
+                max_transform_err=err)
+
+
+def profile_bundle_adjust(device, K: int, unprofiled_ms_per_iteration: float,
+                          iterations: int) -> dict:
+    """``torch.profiler`` over the run that ``run_bundle_adjust`` timed (the
+    same window, ``prepare_ba_window`` and ``iterations`` LM iterations): the
+    time the card was busy per iteration, its idle share of an UNPROFILED
+    iteration, the device time of the port's own kernels per launch, and
+    the kernels that took most of the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _, _, _, run = ba_window_on_card(device, K)
+    run(2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, res = run(iterations)
+        torch.cuda.synchronize()
+    n = int(res.iterations)
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_time_total > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    return {
+        "K": K, "iterations": n,
+        "device_busy_ms_per_iteration": busy_ms / n,
+        "device_idle_share": 1.0 - (busy_ms / n) / unprofiled_ms_per_iteration,
+        "device_kernels_per_iteration": sum(r[2] for r in rows) / n,
+        "port_kernels_device_ms": {
+            name: next((r[1] / r[2] for r in rows if name in r[0]), None)
+            for name in ("schur_assemble_kernel", "schur_reduce_kernel",
+                         "schur_tile_kernel", "tile_reduce_kernel")},
+        "top_kernels": [{"name": r[0][:80], "ms_per_iteration": r[1] / n,
+                         "calls_per_iteration": r[2] / n} for r in rows[:12]],
+    }
+
+
+def run_map_optimisation(device, profile: bool = False) -> tuple[dict, dict]:
+    reset_launch_counts()
+    windows = [run_bundle_adjust(device, 32, 30), run_bundle_adjust(device, 64, 10),
+               run_bundle_adjust(device, 128, 10)]
+    graph = run_pose_graph(device)
+    clouds = run_icp(device)
+    counts = launch_counts()
+    require(all(counts[k] > 0 for k in BACKEND_KERNELS), f"kernel not launched: {counts}")
+    report = {"phase": "map_optimisation", "bundle_adjust": windows,
+              "pose_graph": graph, "icp": clouds,
+              "launches": {k: counts[k] for k in BACKEND_KERNELS}}
+    if profile:                      # after the launch counts were read
+        report["profile"] = [
+            profile_bundle_adjust(device, w["K"], w["ms_per_iteration"], w["iterations"])
+            for w in (windows[0], windows[2])]
+    return report, counts
+
+
+def check_backend_against_cpu(device) -> dict:
+    """A small BA window (kernel K4 on the card, its plain version on the
+    CPU, the same fixed number of LM iterations) and a small pose graph:
+    the card against the port on the CPU."""
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch import convert
+    from svi_mapper_tpu_torch.io.synthetic import default_camera
+    from svi_mapper_tpu_torch.solvers import ba, pose_graph
+
+    p = ba_problem(8, 256, seed=5)
+    out = {}
+    results = {}
+    for dev in (device, "cpu"):
+        cam = default_camera(BA_WIDTH, BA_HEIGHT, device=dev)
+        t = convert.ba_problem_from_numpy(
+            dict(T_wc=p["T"], points_w=p["X0"], obs_uv=p["obs"], obs_mask=p["mask"],
+                 fix_mask=p["fix"]), device=dev)
+        results[str(dev)] = ba.bundle_adjust(
+            t["T_wc"], t["points_w"], t["obs_uv"], t["obs_mask"], cam, t["fix_mask"],
+            max_iterations=6, min_rel_improvement=0.0, use_schur_kernel=True,
+            device=dev)
+    a, b = results[str(device)], results["cpu"]
+    chi_rel = abs(float(a.chi2_final) - float(b.chi2_final)) / float(b.chi2_final)
+    dT = float((a.T_wc.cpu() - b.T_wc).abs().max())
+    dX = float((a.points_w.cpu() - b.points_w).abs().max())
+    require(chi_rel < 1e-3 and dT < 1e-4 and dX < 1e-3,
+            f"BA card vs CPU: chi2 {chi_rel}, poses {dT}, points {dX}")
+    out["bundle_adjust"] = {"chi2_final_rel_diff": chi_rel, "max_pose_diff": dT,
+                            "max_point_diff_m": dX}
+
+    T_true, T_est, edges_np, fix = ring_graph(60, seed=9, overlap=10)
+    poses = {}
+    for dev in (device, "cpu"):
+        edges = convert.pose_graph_edges_from_numpy(edges_np, device=dev)
+        poses[str(dev)] = pose_graph.optimize_pose_graph(
+            torch.from_numpy(T_est).to(dev), edges, torch.from_numpy(fix).to(dev),
+            device=dev)
+    a, b = poses[str(device)], poses["cpu"]
+    dT = float((a.T_wc.cpu() - b.T_wc).abs().max())
+    require(int(a.iterations) == int(b.iterations) and dT < 1e-4,
+            f"pose graph card vs CPU: poses {dT}, iterations "
+            f"{int(a.iterations)} / {int(b.iterations)}")
+    out["pose_graph"] = {"max_pose_diff": dT, "iterations": int(a.iterations),
+                         "end_point_err_m": end_point_error(a.T_wc.cpu().numpy(), T_true)}
+    return out
 
 
 def main() -> int:
@@ -585,24 +1142,42 @@ def main() -> int:
           "max_abs_err": {k["name"]: k["max_abs_err"] for k in full},
           "track_scores_planted": full[1]["planted"]})
 
-    # 4. the card against the CPU on a small sequence
-    emit({"phase": "gpu_vs_cpu", **check_against_cpu(device)})
+    backend = check_backend_kernels(device)
+    emit({"phase": "kernels_backend", "tolerance": SCHUR_TOL, "shapes": backend,
+          "build": ptxas_report("schur_assemble.cu", "kernel")})
 
-    # 5. the main path
-    report, counts = run_main_path(device, profile="--profile" in sys.argv[1:])
+    # 4. the card against the CPU on a small sequence, a small BA window and
+    #    a small pose graph
+    emit({"phase": "gpu_vs_cpu", **check_against_cpu(device),
+          **check_backend_against_cpu(device)})
+
+    # 5. the main paths, each with the launch counts set to 0 just before it
+    #    and read just after
+    profile = "--profile" in sys.argv[1:]
+    report, counts = run_main_path(device, profile=profile)
     emit(report)
+    report, backend_counts = run_map_optimisation(device, profile=profile)
+    emit(report)
+    counts = {**{k: counts[k] for k in FRONTEND_KERNELS},
+              **{k: backend_counts[k] for k in BACKEND_KERNELS}}
 
+    # the kernels line: each kernel at the largest shape its main path gives it
+    at_width = {"schur_assemble": backend[2], "schur_assemble_tiled": backend[4]}
     kernels = []
-    for k in full:
-        kernels.append({
+    for k in full + [at_width[n] for n in BACKEND_KERNELS]:
+        row = {
             "name": k["name"], **KERNEL_FACTS[k["name"]],
             "launches": counts[k["name"]], "max_abs_err": k["max_abs_err"],
-            "ms": k["ms"], "launch_only_ms": k["launch_only_ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
-            # no single PyTorch call computes any of the three functions
+            # no single PyTorch call computes any of the five functions
             "library_ms": None,
-        })
+        }
+        for extra in ("launch_only_ms", "rel_err_vs_plain", "K", "L", "flops",
+                      "flops_executed", "product_matmul_ms"):
+            if extra in k:
+                row[extra] = k[extra]
+        kernels.append(row)
     print(smi, flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

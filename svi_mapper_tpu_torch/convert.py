@@ -1,7 +1,8 @@
 """State carried across: numpy dictionaries <-> the port's dataclasses.
 
-The system has no weights; its state is the calibration, the parameters and
-the ``FrameState``. These helpers take and give numpy only, so either
+The system has no weights; its state is the calibration, the parameters,
+the ``FrameState``, and for the map optimisation a BA window, a pose graph's
+edges and a vocabulary. These helpers take and give numpy only, so either
 package can be started from the other's state and compared field by field:
 a caller builds the dictionaries from the JAX pytrees with ``np.asarray``.
 Packed descriptors cross as bit patterns: ``uint32`` on the numpy side,
@@ -21,25 +22,13 @@ from svi_mapper_tpu_torch.geometry.camera import (
     pinhole_from_projection,
 )
 from svi_mapper_tpu_torch.mapping.landmarks import LandmarkTable
+from svi_mapper_tpu_torch.mapping.vocabulary import Vocabulary
 from svi_mapper_tpu_torch.models.frame import FrameState
+from svi_mapper_tpu_torch.ops.descriptors import words_from_numpy, words_to_numpy
+from svi_mapper_tpu_torch.solvers.pose_graph import PoseGraphEdges
 from svi_mapper_tpu_torch.utils.device import resolve_device
 
 _DESC_FIELDS = ("desc_left_ref", "desc_right_ref", "desc_left_last", "desc_hist")
-
-
-def words_from_numpy(a: np.ndarray, device) -> torch.Tensor:
-    """uint32 (or int32) packed words -> int32 tensor with the same bits."""
-    a = np.ascontiguousarray(a)
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    elif a.dtype != np.int32:
-        raise TypeError(f"packed words must be uint32 or int32, got {a.dtype}")
-    return torch.from_numpy(a.copy()).to(device)
-
-
-def words_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """int32 tensor of packed words -> uint32 numpy with the same bits."""
-    return np.ascontiguousarray(t.detach().cpu().numpy()).view(np.uint32)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -108,3 +97,55 @@ def state_to_numpy(state: FrameState) -> dict:
     out.update({k: np.int32(int(getattr(state, k))) for k in _STATE_SCALARS})
     out["table"] = table_to_numpy(state.table)
     return out
+
+
+def ba_problem_from_numpy(d: dict, device=None) -> dict:
+    """A BA window ``{T_wc [K,4,4], points_w [L,3], obs_uv [K,L,4], obs_mask
+    [K,L], fix_mask [K]}`` and, where present, ``obs_w``, ``odo_M``, ``odo_w``,
+    ``grav_d``, ``grav_w`` -> tensors on the device under the same names:
+    floats as float32, the two masks as bool. The positional arguments of
+    ``bundle_adjust`` are the first five in this order, the rest are its
+    keywords."""
+    dev = resolve_device(device)
+    out = {}
+    for name, a in d.items():
+        a = np.asarray(a)
+        dt = bool if name in ("obs_mask", "fix_mask") else np.float32
+        out[name] = _tensor(a.astype(dt), dev)
+    return out
+
+
+def pose_graph_edges_from_numpy(d: dict, device=None) -> PoseGraphEdges:
+    """``{i, j, T_ij, weight, valid[, info6]}`` -> ``PoseGraphEdges``."""
+    dev = resolve_device(device)
+    info6 = d.get("info6")
+    return PoseGraphEdges(
+        i=_tensor(np.asarray(d["i"], np.int32), dev),
+        j=_tensor(np.asarray(d["j"], np.int32), dev),
+        T_ij=_tensor(np.asarray(d["T_ij"], np.float32), dev),
+        weight=_tensor(np.asarray(d["weight"], np.float32), dev),
+        valid=_tensor(np.asarray(d["valid"], bool), dev),
+        info6=None if info6 is None else _tensor(np.asarray(info6, np.float32), dev),
+    )
+
+
+def vocabulary_from_numpy(d: dict, device=None) -> Vocabulary:
+    """``{k, levels, centroids: [uint32 [k**l,k,8]], child_valid: [bool
+    [k**l,k]], weights}`` -> ``Vocabulary`` (centroid levels as int32 bit
+    views)."""
+    dev = resolve_device(device)
+    return Vocabulary(
+        k=int(d["k"]), levels=int(d["levels"]),
+        centroids=tuple(words_from_numpy(np.asarray(c), dev) for c in d["centroids"]),
+        child_valid=tuple(_tensor(np.asarray(v, bool), dev) for v in d["child_valid"]),
+        weights=_tensor(np.asarray(d["weights"], np.float32), dev),
+    )
+
+
+def vocabulary_to_numpy(vocab: Vocabulary) -> dict:
+    return {
+        "k": vocab.k, "levels": vocab.levels,
+        "centroids": [words_to_numpy(c) for c in vocab.centroids],
+        "child_valid": [v.detach().cpu().numpy() for v in vocab.child_valid],
+        "weights": vocab.weights.detach().cpu().numpy(),
+    }

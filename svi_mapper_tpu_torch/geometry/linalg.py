@@ -62,3 +62,13 @@ def solve6x6_spd(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x2 = solve3x3(S, rhs2)
     x1 = Ainv_b1 - torch.einsum("...ij,...j->...i", AinvB, x2)
     return torch.cat([x1, x2], dim=-1)
+
+
+def cholesky_solve_or_nan(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """``S^-1 rhs`` (``[n,n]``, ``[n]``) for a damped SPD system without a
+    host read: where the factorisation fails the solution is NaN, as
+    ``cho_factor`` gives it in the JAX package, and the caller's step is
+    rejected or zeroed."""
+    chol, info = torch.linalg.cholesky_ex(S, check_errors=False)
+    chol = torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
+    return torch.cholesky_solve(rhs[:, None], chol)[:, 0]

@@ -19,6 +19,7 @@ import math
 import torch
 
 _EPS = 1e-8
+_LOG_SE3_TAYLOR = 1e-4     # theta^2 below which log_se3 takes its series
 
 
 def hat(w: torch.Tensor) -> torch.Tensor:
@@ -155,10 +156,15 @@ def log_se3(T: torch.Tensor) -> torch.Tensor:
     A, B, _ = _so3_coeffs(theta_sq)
     Phi = hat(phi)
     Phi2 = Phi @ Phi
-    small = theta_sq < _EPS
+    # Taylor branch up to theta = 1e-2: in float32 ``1 - A / (2 B)`` has no
+    # digits left below that (``1 - cos`` rounds to 0 or one ulp near
+    # theta = 2e-4, which gives NaN or a translation off by centimetres —
+    # as the JAX package's ``log_se3``, with its 1e-4 threshold, does)
+    small = theta_sq < _LOG_SE3_TAYLOR
     safe_t2 = torch.where(small, torch.ones_like(theta_sq), theta_sq)
-    coef = torch.where(small, torch.full_like(theta_sq, 1.0 / 12.0),
-                       (1.0 - A / (2.0 * B)) / safe_t2)
+    safe_B = torch.where(small, torch.ones_like(B), B)
+    coef = torch.where(small, 1.0 / 12.0 + theta_sq / 720.0,
+                       (1.0 - A / (2.0 * safe_B)) / safe_t2)
     V_inv = _eye_like(Phi) - 0.5 * Phi + coef[..., None, None] * Phi2
     rho = (V_inv @ t[..., None])[..., 0]
     return torch.cat([rho, phi], dim=-1)

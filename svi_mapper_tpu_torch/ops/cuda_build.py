@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: name -> argtypes (every function returns int)
 _SIGNATURES = {
     # field, u, v, x0, y0, nxq, nyq, c0q, ru, rv, desc_last, desc_ref,
@@ -44,11 +45,18 @@ _SIGNATURES = {
     "svi_stereo_profiles": [_P] * 5 + [_I] * 3 + [_P],
     # img, pattern, out, H, W, stream
     "svi_brief_dense_fused": [_P] * 3 + [_I] * 2 + [_P],
+    # T, X, obs, obs_w, S, b_p, Hll_inv, b_l, W, ww_part, pp_part, K, L,
+    # fx, fy, cx, cy, bq, kernel_px2, point_damping, lam, stream
+    "svi_schur_assemble": [_P] * 11 + [_I] * 2 + [_F] * 8 + [_P],
+    # T, X, obs, obs_w, H_pp, b_p, hl_part, W, pp_part, K, L,
+    # fx, fy, cx, cy, bq, kernel_px2, stream
+    "svi_schur_assemble_tiled": [_P] * 9 + [_I] * 2 + [_F] * 6 + [_P],
 }
 
 _lock = threading.Lock()
 _lib = None
 build_seconds: float | None = None   # wall time of this process's build
+build_log: dict[str, str] = {}       # source name -> what ptxas said (-v)
 
 
 def _nvcc() -> str:
@@ -74,7 +82,7 @@ def _build(lib_path: Path, verbose: bool) -> None:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{lib_path.stem}.{os.getpid()}"
-    extra = ["-Xptxas", "-v"] if verbose else []
+    extra = ["-Xptxas", "-v"]       # registers, shared memory and spills
     procs = []
     for src in sources():
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
@@ -84,6 +92,7 @@ def _build(lib_path: Path, verbose: bool) -> None:
     failed = []
     for src, obj, proc in procs:
         out, _ = proc.communicate()
+        build_log[src.name] = out or ""
         if verbose and out:
             print(out, flush=True)
         if proc.returncode != 0:

@@ -77,6 +77,21 @@ def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     return bits.reshape(packed.shape[:-1] + (DESCRIPTOR_BITS,)).to(torch.bool)
 
 
+def words_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """uint32 (or int32) packed words -> int32 tensor with the same bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype != np.int32:
+        raise TypeError(f"packed words must be uint32 or int32, got {a.dtype}")
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def words_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int32 tensor of packed words -> uint32 numpy with the same bits."""
+    return np.ascontiguousarray(t.detach().cpu().numpy()).view(np.uint32)
+
+
 def popcount32(x: torch.Tensor) -> torch.Tensor:
     """Per-word population count of int32 bit patterns (SWAR; PyTorch has
     no popcount op). Every arithmetic right shift is followed by a mask

@@ -22,3 +22,14 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def require_fp32_matmul(t: torch.Tensor) -> None:
+    """The solvers' matrix products must run in full float32 on the card
+    (their L-long contractions stall LM at TF32's three digits). PyTorch's
+    default is full float32; a caller that switched TF32 on is told so,
+    nothing is flipped here."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is True: the map "
+            "optimisation needs float32 matrix products; set it to False")

@@ -31,13 +31,16 @@ def test_module_layout_mirrors_the_jax_package():
         "frontend.epipolar", "frontend.tracking", "frontend.stereo",
         "frontend.recovery", "solvers.posit", "solvers.landmark_opt",
         "models.frame", "models.tracker", "io.synthetic", "utils.errors",
+        "ops.ba_kernel", "solvers.ba", "solvers.ba_prep", "solvers.pose_graph",
+        "solvers.icp", "mapping.bitstats", "mapping.vocabulary",
     }
     have = {m.removeprefix("svi_mapper_tpu_torch.") for m in MODULES}
     assert expected <= have
     for name in expected - {"convert"}:
         assert (REPO / "svi_mapper_tpu" / (name.replace(".", "/") + ".py")).exists(), name
     sources = sorted(p.name for p in (REPO / "svi_mapper_tpu_torch" / "csrc").glob("*.cu"))
-    assert sources == ["brief_dense.cu", "stereo_profiles.cu", "track_scores.cu"]
+    assert sources == ["brief_dense.cu", "schur_assemble.cu", "stereo_profiles.cu",
+                       "track_scores.cu"]
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -60,7 +63,8 @@ def test_importing_every_module_leaves_jax_out():
 
 
 def test_sources_name_no_jax_import():
-    files = list((REPO / "svi_mapper_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (list((REPO / "svi_mapper_tpu_torch").rglob("*.py"))
+             + [REPO / "chip_smoke.py", REPO / "mutation_check.py"])
     assert len(files) > 20
     for path in files:
         for line in path.read_text().splitlines():
@@ -107,6 +111,45 @@ def test_entry_points_raise_without_device():
         frame.process_chunk(state, img[None], img[None], cam, config.DEFAULT_PARAMS)
 
 
+def test_map_optimisation_entry_points_raise_without_device(rng):
+    """The same rule for the solvers of the map-optimisation slice and the
+    vocabulary: CPU tensors do not make them run on the CPU by themselves."""
+    _no_cuda()
+    from svi_mapper_tpu_torch import convert
+    from svi_mapper_tpu_torch.io.synthetic import default_camera
+    from svi_mapper_tpu_torch.mapping import vocabulary
+    from svi_mapper_tpu_torch.solvers import ba, ba_prep, icp, pose_graph
+
+    cam = default_camera(128, 64, device="cpu")
+    T = torch.eye(4).repeat(3, 1, 1)
+    X = torch.rand(5, 3) + torch.tensor([0.0, 0.0, 4.0])
+    obs, mask = torch.zeros(3, 5, 4), torch.ones(3, 5, dtype=torch.bool)
+    fix = torch.tensor([True, False, False])
+    edges_np = dict(i=[0, 1], j=[1, 2], T_ij=np.tile(np.eye(4), (2, 1, 1)),
+                    weight=[1.0, 1.0], valid=[True, True])
+    edges = convert.pose_graph_edges_from_numpy(edges_np, device="cpu")
+    desc = rng.integers(0, 2 ** 32, (64, 8), dtype=np.uint64).astype(np.uint32)
+    calls = [
+        lambda: ba.bundle_adjust(T, X, obs, mask, cam, fix),
+        lambda: ba.reprojection_stats(T, X, obs, mask, cam),
+        lambda: ba_prep.prepare_ba_window(T, obs, mask, X, cam),
+        lambda: pose_graph.optimize_pose_graph(T, edges, fix),
+        lambda: pose_graph.make_edges(4),
+        lambda: icp.align_clouds(X, X, torch.ones(5, dtype=torch.bool)),
+        lambda: icp.align_clouds_batch(X[None], X[None], torch.ones(1, 5, dtype=torch.bool)),
+        lambda: vocabulary.build_vocabulary(desc, k=2, levels=2),
+        lambda: vocabulary.load_vocabulary("nowhere.npz"),
+        lambda: convert.ba_problem_from_numpy({"T_wc": T.numpy()}),
+        lambda: convert.pose_graph_edges_from_numpy(edges_np),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # and with device="cpu" they do run
+    res = ba.bundle_adjust(T, X, obs, mask, cam, fix, max_iterations=1, device="cpu")
+    assert res.T_wc.device.type == "cpu"
+
+
 def test_device_mismatch_rejected():
     from svi_mapper_tpu_torch.io.synthetic import default_camera
     from svi_mapper_tpu_torch.models import frame
@@ -135,6 +178,35 @@ def test_wrappers_take_plain_version_on_cpu(rng):
         descriptors.brief_dense_fused(img.to(torch.float64))
 
 
+def test_schur_wrappers_take_plain_version_on_cpu():
+    from svi_mapper_tpu_torch.ops import ba_kernel
+    from tests import torch_parity as tp
+
+    w = tp.ba_window(K=32, L=40)
+    args = (tp.t32(w["T"]), tp.t32(w["X"]), tp.t32(w["obs"]),
+            tp.t32(w["mask"].astype(np.float32)))
+    kw = dict(zip(("fx", "fy", "cx", "cy", "bq"), w["intr"]))
+    n0 = (ba_kernel.schur_assemble_launches, ba_kernel.schur_assemble_tiled_launches)
+    for fn, plain in ((ba_kernel.schur_assemble, ba_kernel.schur_assemble_plain),
+                      (ba_kernel.schur_assemble_tiled, ba_kernel.schur_assemble_tiled_plain)):
+        for a, b in zip(fn(*args, 1e-3, **kw), plain(*args, 1e-3, **kw)):
+            assert torch.equal(a, b)
+    assert n0 == (ba_kernel.schur_assemble_launches,
+                  ba_kernel.schur_assemble_tiled_launches)
+    # a 0-d tensor for lam is the same as the float
+    for a, b in zip(ba_kernel.schur_assemble(*args, torch.tensor(1e-3), **kw),
+                    ba_kernel.schur_assemble(*args, 1e-3, **kw)):
+        assert torch.equal(a, b)
+
+
+def test_fp32_matmul_guard():
+    """Nothing flips TF32; the guard only looks at CUDA tensors."""
+    from svi_mapper_tpu_torch.utils.device import require_fp32_matmul
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    require_fp32_matmul(torch.zeros(2))
+
+
 def test_kernel_build_needs_a_compiler():
     """Nothing hides a missing toolchain: loading the kernels without nvcc
     raises (and never falls back)."""
@@ -146,9 +218,17 @@ def test_kernel_build_needs_a_compiler():
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_build.load_library()
     assert [p.name for p in cuda_build.sources()] == [
-        "brief_dense.cu", "stereo_profiles.cu", "track_scores.cu"]
+        "brief_dense.cu", "schur_assemble.cu", "stereo_profiles.cu", "track_scores.cu"]
     assert set(cuda_build._SIGNATURES) == {
-        "svi_track_scores", "svi_stereo_profiles", "svi_brief_dense_fused"}
+        "svi_track_scores", "svi_stereo_profiles", "svi_brief_dense_fused",
+        "svi_schur_assemble", "svi_schur_assemble_tiled"}
+    # each exported name is defined, with as many parameters, in a source
+    import re
+    text = "".join(p.read_text() for p in cuda_build.sources())
+    for name, argtypes in cuda_build._SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+        assert m, name
+        assert len(m.group(1).split(",")) == len(argtypes), name
 
 
 def test_calibration_parser_matches_jax_package():
