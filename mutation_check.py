@@ -1,5 +1,5 @@
-"""Does ``chip_smoke.py`` catch a wrong Schur-assembly kernel? And what do
-the kernel's small-window instances buy?
+"""Does ``chip_smoke.py`` catch a wrong Schur-assembly or Hamming-matrix
+kernel? And what do the Schur kernel's small-window instances buy?
 
     python3 mutation_check.py [fault ...]
     python3 mutation_check.py --instances
@@ -7,22 +7,31 @@ the kernel's small-window instances buy?
 A developer's check, run from the repository root; needs one CUDA card and
 ``nvcc``. For each named fault the package and ``chip_smoke.py`` are copied to
 a temporary directory, the fault is planted in the copy's
-``csrc/schur_assemble.cu``, and the copy's ``chip_smoke.check_backend_kernels``
-(build + every shape of the ``kernels_backend`` phase) runs in a process of
-its own. A fault is *caught* when that process fails. The unchanged copy
+``csrc/schur_assemble.cu`` or ``csrc/hamming_matrix.cu``, and the copy's
+``chip_smoke.check_backend_kernels`` or ``chip_smoke.check_closure_kernel``
+(build + every shape of the ``kernels_backend`` / ``kernels_closure`` phase)
+runs in a process of its own. A fault is *caught* when that process fails. The unchanged copy
 runs first and must pass. Prints one JSON line per fault and exits non-zero
 if the control fails or a fault that changes the result goes uncaught.
 
-Two of the faults are listed as ``equivalent`` — no input can tell them from
-the unchanged kernel — each beside a fault of the same kind that does change
-the result and must be caught:
+Three of the faults are listed as ``equivalent`` — no input can tell them
+from the unchanged kernel — each beside a fault of the same kind that does
+change the result and must be caught:
 
 * ``>=`` for ``>`` at the robust kernel: at ``err2 == kernel_px2`` both
   branches give the weight 1 (beside it: the robust branch never taken);
 * a keyframe tile that starts one tile further on (cyclically): a block
   labels everything it reads and writes with the same global keyframe index,
   so the blocks merely swap their work (beside it: the tile offset dropped
-  where the pose is read).
+  where the pose is read);
+* in the Hamming kernel, b-rows past the ragged edge staged as ones instead
+  of zeros: their columns are never written (beside it: the edge test off
+  by one where the column is written).
+
+The Hamming faults (``hamming_*``): one word dropped from the sum, OR for
+XOR, the matrix written transposed, the ragged edge off by one on either
+axis, a shift that loses the sign bit before the popcount, and the batch
+offset dropped.
 
 The two ``hll_inv_written_*`` faults change only the ``Hll_inv`` the kernel
 writes out (and through it ``rhs``), not the inverse it uses for ``S``. The
@@ -46,9 +55,12 @@ import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-SOURCE = Path("svi_mapper_tpu_torch") / "csrc" / "schur_assemble.cu"
+CSRC = Path("svi_mapper_tpu_torch") / "csrc"
+SOURCE = CSRC / "schur_assemble.cu"
+HAMMING_SOURCE = CSRC / "hamming_matrix.cu"
 
-# name -> (text in the source, its replacement, changes the result?)
+# name -> (text in the source, its replacement, changes the result?); the
+# names that begin with "hamming_" are planted in HAMMING_SOURCE
 FAULTS = {
     "control": (None, None, False),
     "dropped_in_front_test": (
@@ -80,6 +92,29 @@ FAULTS = {
     "hll_inv_written_3_percent_off": (
         "Hll_inv[(size_t)l * 9 + i] = hi[i];",
         "Hll_inv[(size_t)l * 9 + i] = (i == 1 || i == 3) ? 1.03f * hi[i] : hi[i];", True),
+    "hamming_control": (None, None, False),
+    "hamming_word_dropped": (
+        "for (int w = 0; w < WORDS; ++w)\n                d += __popc(",
+        "for (int w = 0; w < WORDS - 1; ++w)\n                d += __popc(", True),
+    "hamming_or_for_xor": (
+        "d += __popc((unsigned)(ra[w] ^ rb[j][w]));",
+        "d += __popc((unsigned)(ra[w] | rb[j][w]));", True),
+    "hamming_written_transposed": (
+        "if (m < M) out[(size_t)n * M + m] = d;",
+        "if (m < M) out[(size_t)m * N + n] = d;", True),
+    "hamming_column_edge_off_by_one": (
+        "if (m < M) out[(size_t)n * M + m] = d;",
+        "if (m < M - 1) out[(size_t)n * M + m] = d;", True),
+    "hamming_row_edge_off_by_one": (
+        "if (n >= N) break;", "if (n >= N - 1) break;", True),
+    "hamming_sign_bit_shifted_out": (
+        "d += __popc((unsigned)(ra[w] ^ rb[j][w]));",
+        "d += __popc((unsigned)(ra[w] ^ rb[j][w]) << 1);", True),
+    "hamming_batch_offset_dropped": (
+        "b += (size_t)z * M * WORDS;", "b += 0;", True),
+    "hamming_edge_rows_staged_as_ones": (
+        "b[(size_t)(m0 + col) * WORDS + w] : 0;",
+        "b[(size_t)(m0 + col) * WORDS + w] : -1;", False),
 }
 
 # sends every window to the 12-strip instance of K4
@@ -88,6 +123,8 @@ ONE_INSTANCE = (("if (K <= 8)", "if (false)"), ("else if (K <= 16)", "else if (f
 CHECK = ("import torch, chip_smoke as c; "
          "torch.backends.cuda.matmul.allow_tf32 = False; "
          "c.check_backend_kernels(torch.device('cuda', 0)); print('PASSED')")
+HAMMING_CHECK = ("import torch, chip_smoke as c; "
+                 "c.check_closure_kernel(torch.device('cuda', 0)); print('PASSED')")
 
 TIME_K4 = """
 import json, torch, chip_smoke as c
@@ -115,29 +152,32 @@ print('K4_MS ' + json.dumps(out))
 """
 
 
-def run_in_copy(code: str, patches) -> subprocess.CompletedProcess:
+def run_in_copy(code: str, patches, source: Path = SOURCE) -> subprocess.CompletedProcess:
     """Run ``code`` in a copy of the package and ``chip_smoke.py`` whose
-    ``csrc/schur_assemble.cu`` has each ``(old, new)`` of ``patches``
-    replaced; every ``old`` must occur exactly once."""
+    ``source`` has each ``(old, new)`` of ``patches`` replaced; every
+    ``old`` must occur exactly once."""
     with tempfile.TemporaryDirectory() as tmp:
         copy = Path(tmp) / "repo"
         shutil.copytree(REPO / "svi_mapper_tpu_torch", copy / "svi_mapper_tpu_torch",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         shutil.copy(REPO / "chip_smoke.py", copy / "chip_smoke.py")
-        text = (copy / SOURCE).read_text()
+        text = (copy / source).read_text()
         for old, new in patches:
             if text.count(old) != 1:
                 raise RuntimeError(f"the text to replace, {old!r}, occurs "
-                                   f"{text.count(old)} times in {SOURCE}")
+                                   f"{text.count(old)} times in {source}")
             text = text.replace(old, new)
-        (copy / SOURCE).write_text(text)
+        (copy / source).write_text(text)
         return subprocess.run([sys.executable, "-c", code], cwd=copy, text=True,
                               capture_output=True, timeout=600)
 
 
 def run_fault(name: str) -> dict:
     old, new, changes = FAULTS[name]
-    proc = run_in_copy(CHECK, [] if old is None else [(old, new)])
+    hamming = name.startswith("hamming_")
+    proc = run_in_copy(HAMMING_CHECK if hamming else CHECK,
+                       [] if old is None else [(old, new)],
+                       HAMMING_SOURCE if hamming else SOURCE)
     passed = proc.returncode == 0 and "PASSED" in proc.stdout
     last = (proc.stderr.strip().splitlines() or [""])[-1]
     return {"fault": name, "changes_result": changes, "caught": not passed,
@@ -171,7 +211,7 @@ def main() -> int:
     for name in sys.argv[1:] or FAULTS:
         row = run_fault(name)
         print(json.dumps(row), flush=True)
-        if name == "control":
+        if name in ("control", "hamming_control"):
             ok &= not row["caught"]
         elif row["changes_result"]:
             ok &= row["caught"]

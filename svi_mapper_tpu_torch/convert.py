@@ -149,3 +149,78 @@ def vocabulary_to_numpy(vocab: Vocabulary) -> dict:
         "child_valid": [v.detach().cpu().numpy() for v in vocab.child_valid],
         "weights": vocab.weights.detach().cpu().numpy(),
     }
+
+
+# ---------------------------------------------------------------------------
+# the closure database and the SLAM keyframe records
+# ---------------------------------------------------------------------------
+
+def keyframe_db_from_numpy(d: dict, device=None):
+    """``{capacity, pool_size, n, desc (uint32 or int32), p_cam, valid, count,
+    T_wc, prob | None, count_host, auto_vocab, vocab_train_at, bow: None |
+    {vocab: {...}, vectors, n}}`` -> ``KeyframeDatabase``: a database filled
+    by either package answers the same query in the port. Descriptors cross
+    as bit patterns; the vocabulary goes through
+    :func:`vocabulary_from_numpy`."""
+    from svi_mapper_tpu_torch.mapping.closure import KeyframeDatabase
+    from svi_mapper_tpu_torch.mapping.vocabulary import BowDatabase
+
+    dev = resolve_device(device)
+    bow = None
+    if d.get("bow") is not None:
+        b = d["bow"]
+        bow = BowDatabase(vocabulary_from_numpy(b["vocab"], dev), capacity=1)
+        bow.vectors = _tensor(np.asarray(b["vectors"], np.float32), dev)
+        bow.n = int(b["n"])
+    T_wc = np.asarray(d["T_wc"], np.float32)
+    prob = d.get("prob")
+    return KeyframeDatabase(
+        capacity=int(d["capacity"]), pool_size=int(d["pool_size"]),
+        desc=words_from_numpy(np.asarray(d["desc"]), dev),
+        p_cam=_tensor(np.asarray(d["p_cam"], np.float32), dev),
+        valid=_tensor(np.asarray(d["valid"], bool), dev),
+        count=_tensor(np.asarray(d["count"], np.int32), dev),
+        T_wc=_tensor(T_wc, dev), n=int(d["n"]),
+        prob=None if prob is None else _tensor(np.asarray(prob, np.uint8), dev),
+        bow=bow, auto_vocab=bool(d.get("auto_vocab", True)),
+        vocab_train_at=int(d.get("vocab_train_at", 8)),
+        count_host=[int(c) for c in d.get("count_host", [])],
+        T_wc_host=T_wc.copy(),
+    )
+
+
+def keyframe_db_to_numpy(db) -> dict:
+    bow = None
+    if db.bow is not None:
+        bow = {"vocab": vocabulary_to_numpy(db.bow.vocab),
+               "vectors": db.bow.vectors.detach().cpu().numpy(), "n": db.bow.n}
+    return {
+        "capacity": db.capacity, "pool_size": db.pool_size, "n": db.n,
+        "desc": words_to_numpy(db.desc), "p_cam": db.p_cam.cpu().numpy(),
+        "valid": db.valid.cpu().numpy(), "count": db.count.cpu().numpy(),
+        "T_wc": db.T_wc.cpu().numpy(),
+        "prob": None if db.prob is None else db.prob.cpu().numpy(),
+        "count_host": list(db.count_host), "auto_vocab": db.auto_vocab,
+        "vocab_train_at": db.vocab_train_at, "bow": bow,
+    }
+
+
+_KEYFRAME_FIELDS = ("index", "frame_idx", "T_wc", "obs_uids", "obs_uv4",
+                    "pool_uids", "obs_pos")
+
+
+def slam_keyframes_from_numpy(records: list) -> list:
+    """A list of ``{index, frame_idx, T_wc, obs_uids, obs_uv4, pool_uids,
+    obs_pos}`` dictionaries -> ``SLAMKeyframe`` records (host numpy on both
+    sides; arrays are copied)."""
+    from svi_mapper_tpu_torch.models.slam import SLAMKeyframe
+
+    return [SLAMKeyframe(**{
+        f: (int(r[f]) if f in ("index", "frame_idx") else np.array(r[f]))
+        for f in _KEYFRAME_FIELDS if f in r}) for r in records]
+
+
+def slam_keyframes_to_numpy(keyframes: list) -> list:
+    return [{f: (getattr(kf, f) if f in ("index", "frame_idx")
+                 else np.array(getattr(kf, f))) for f in _KEYFRAME_FIELDS}
+            for kf in keyframes]

@@ -1,5 +1,5 @@
 """Synthetic stereo sequence generator with exact ground truth (the
-corridor world).
+corridor world, and a ring world for large loops).
 
 A deterministic multi-plane world with a procedural texture evaluated at the
 3D hit point, so left/right images are exactly photoconsistent, ground-truth
@@ -66,6 +66,46 @@ _PLANES = [
     # far wall (keeps the vanishing region textured)
     ((0.0, 0.0, 480.0), (0.0, 0.0, -1.0), (1.0, 0.0, 0.0), 60.0, (0.0, 1.0, 0.0), 40.0),
 ]
+
+
+def ring_world(radius: float, half_width: float = 9.0,
+               n_segments: int = 16, wall_half_height: float = 4.0) -> tuple:
+    """Plane world for LARGE circular loops: an annular circuit.
+
+    The corridor world (``_PLANES``) is sized for small loops (walls at
+    x = +-9, ground +-60 m); a loop of radius ~100 m leaves it. This builds a
+    world that CONTAINS such a loop: a big ground plane plus inner/outer
+    polygon fence walls (``n_segments`` planar segments each) bracketing the
+    ring the camera drives, so every viewpoint on the loop sees textured
+    ground ahead and depth-structured walls to both sides.
+
+    ``loop_trajectory(n, radius)`` starts at the origin heading +z and
+    curves toward +x, so its circle is centered at (radius, 0, 0) — the
+    returned world is centered there too.
+    """
+    import math
+
+    cx = float(radius)
+    e_ground = radius + half_width + 30.0
+    planes = [
+        ((cx, 1.5, 0.0), (0.0, -1.0, 0.0),
+         (1.0, 0.0, 0.0), e_ground, (0.0, 0.0, 1.0), e_ground),
+    ]
+    fences = [radius + half_width]
+    if radius - half_width > 1.0:
+        fences.append(radius - half_width)
+    for r_f in fences:
+        e1 = r_f * math.tan(math.pi / n_segments) + 0.5   # overlap corners
+        for s in range(n_segments):
+            phi = 2.0 * math.pi * s / n_segments
+            c, sn = math.cos(phi), math.sin(phi)
+            planes.append((
+                (cx + r_f * c, 0.0, r_f * sn),
+                (-c, 0.0, -sn),                 # sign irrelevant: raycast
+                (-sn, 0.0, c), float(e1),       # has no backface culling
+                (0.0, 1.0, 0.0), float(wall_half_height),
+            ))
+    return tuple(planes)
 
 
 def _texture(p: torch.Tensor) -> torch.Tensor:
@@ -168,23 +208,50 @@ def corridor_trajectory(n_frames: int, step: float = 0.8,
     return np.stack(poses)
 
 
+def loop_trajectory(n_frames: int, radius: float = 5.0,
+                    frames_per_loop: int | None = None) -> np.ndarray:
+    """Ground-truth poses T_wc [N,4,4] around a circle (camera heading
+    tangent) — the loop-closure test trajectory. With
+    ``frames_per_loop < n_frames`` the path continues past 2*pi, so late
+    frames REVISIT early poses (closure opportunities at near-identical
+    viewpoints)."""
+    poses = []
+    if frames_per_loop is None:
+        frames_per_loop = n_frames
+    step_angle = 2.0 * np.pi / frames_per_loop
+    arc = radius * step_angle
+    d = se3.exp_se3(torch.tensor([0.0, 0.0, arc, 0.0, step_angle, 0.0],
+                                 dtype=torch.float32)).numpy()
+    T_cw = np.eye(4, dtype=np.float32)
+    for _ in range(n_frames):
+        T_cw = T_cw @ d
+        poses.append(np.linalg.inv(T_cw).astype(np.float32))
+    return np.stack(poses)
+
+
 class SyntheticSequence:
-    """Iterable stereo sequence with ground truth (the fixture generator);
-    only the corridor trajectory is ported."""
+    """Iterable stereo sequence with ground truth (the fixture generator).
+    ``world`` is a plane tuple such as :func:`ring_world`; None means the
+    corridor. (The JAX package's ``alias_period`` is not ported.)"""
 
     def __init__(self, n_frames: int = 40, width: int = 512, height: int = 256,
                  step: float = 0.8, yaw_amp: float = 0.003,
-                 trajectory: str = "corridor",
+                 trajectory: str = "corridor", loop_radius: float = 5.0,
+                 world: tuple | None = None,
                  device: torch.device | str | None = None):
         self.cam = default_camera(width, height, device=device)
+        self.world = world
         if trajectory == "corridor":
             self.poses_wc = corridor_trajectory(n_frames, step, yaw_amp)
+        elif trajectory == "loop":
+            self.poses_wc = loop_trajectory(
+                n_frames, loop_radius, frames_per_loop=int(n_frames / 1.15))
         else:
             raise ValueError(f"unknown trajectory {trajectory!r}")
         self.n_frames = n_frames
 
     def frame(self, i: int):
-        imgL, imgR = render_stereo(self.cam, self.poses_wc[i])
+        imgL, imgR = render_stereo(self.cam, self.poses_wc[i], self.world)
         return imgL, imgR, self.poses_wc[i]
 
     def __iter__(self):

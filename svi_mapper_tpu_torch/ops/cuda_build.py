@@ -51,6 +51,8 @@ _SIGNATURES = {
     # T, X, obs, obs_w, H_pp, b_p, hl_part, W, pp_part, K, L,
     # fx, fy, cx, cy, bq, kernel_px2, stream
     "svi_schur_assemble_tiled": [_P] * 9 + [_I] * 2 + [_F] * 6 + [_P],
+    # a, b, out, B, N, M, stream
+    "svi_hamming_matrix": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,23 +1,55 @@
 """Hamming distances between packed 256-bit descriptors (int32 words).
 
-Two implementations of one contract:
-  * :func:`hamming_packed` — XOR + popcount on the packed words;
+Distance matrices, one contract:
+  * :func:`hamming_packed` — XOR + popcount on the packed words, in plain
+    PyTorch; the plain version of kernel K6;
   * :func:`hamming_mxu`    — the bit-matmul identity
     ``d(i,j) = |a_i| + |b_j| - 2 a_i . b_j`` on unpacked {0,1} float32
     matrices: one ``[N,256] x [256,M]`` matrix product, exact because all
     partial sums are integers <= 256. (The name is the JAX package's.)
+  * :func:`hamming_distance_matrix` — kernel K6 (``csrc/hamming_matrix.cu``)
+    for CUDA tensors, the plain version only for CPU tensors.
+
+Plus the batched matchers built on the distance matrix (nearest and
+mutual-nearest with a Hamming cutoff), replacing ``CBTree::match`` and the
+one-to-one enforcement of CBPTree.h:41-50 / ``_getMatchNN``
+(CTrackerGT.cpp:648-678).
+
+K6 replaces the TPU kernel ``svi_mapper_tpu/ops/hamming.py``
+``hamming_pallas`` (``_hamming_kernel``). Its 128 x 128 tile and the padding
+of N and M to 128 served the TPU's lanes and are not carried over: the CUDA
+kernel takes ragged N and M with a bounds test, and a leading batch
+dimension as one grid axis.
+
+Bound on the card (N = 256, M = 4096): (N + M) * 32 bytes in, N * M * 4
+bytes out (4.2 MB, which sets it) against N * M * 24 integer operations.
+Bytes bound it. Design: a block stages 128 b-rows word-major and 32 a-rows
+in shared memory, a lane keeps the words of its four columns in registers,
+and every store of a warp is 32 neighbouring ints.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from svi_mapper_tpu_torch.ops.descriptors import hamming_words, unpack_bits
+from svi_mapper_tpu_torch.ops import cuda_build
+from svi_mapper_tpu_torch.ops.descriptors import (
+    DESCRIPTOR_WORDS,
+    hamming_words,
+    unpack_bits,
+)
+
+_BIG = 1 << 20
+_GRID_MAX = 65535          # CUDA's limit on the y and z extents of a grid
+_TILE_N = 32               # a-rows per block in csrc/hamming_matrix.cu
 
 
 def hamming_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """All-pairs Hamming distance: a [N, 8], b [M, 8] int32 -> [N, M] int32."""
-    return hamming_words(a[:, None, :], b[None, :, :])
+    """All-pairs Hamming distance: a [..., N, 8], b [..., M, 8] int32 ->
+    [..., N, M] int32."""
+    return hamming_words(a[..., :, None, :], b[..., None, :, :])
 
 
 def hamming_mxu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -28,3 +60,119 @@ def hamming_mxu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     nb = torch.sum(b_bits, dim=-1)
     dot = a_bits @ b_bits.T
     return (na[:, None] + nb[None, :] - 2.0 * dot).to(torch.int32)
+
+
+hamming_matrix_launches = 0
+
+
+def hamming_distance_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance matrix ``[..., N, M]`` of ``a [..., N, 8]`` against
+    ``b [..., M, 8]`` (int32 words, the same leading dimensions on both).
+
+    CUDA tensors go through the hand-written kernel (or raise); only CPU
+    tensors take the plain version. The kernel takes one batch axis: leading
+    dimensions are flattened to it here and restored on the result."""
+    if a.dim() != b.dim() or a.dim() < 2 or a.shape[:-2] != b.shape[:-2]:
+        raise ValueError(
+            f"hamming_distance_matrix: shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    if not (a.is_cuda or b.is_cuda):
+        return hamming_packed(a, b)
+    if a.device != b.device:
+        raise ValueError("hamming_distance_matrix: inputs on different devices")
+    lead = a.shape[:-2]
+    if len(lead) > 1:
+        n = math.prod(lead)
+        a, b = a.reshape((n,) + a.shape[-2:]), b.reshape((n,) + b.shape[-2:])
+    a, b = a.contiguous(), b.contiguous()
+    cuda_build.require_int32_contiguous(a, "a", (DESCRIPTOR_WORDS,))
+    cuda_build.require_int32_contiguous(b, "b", (DESCRIPTOR_WORDS,))
+    d = launch_hamming_matrix(cuda_build.load_library(), a, b)
+    return d.reshape(lead + d.shape[-2:]) if len(lead) > 1 else d
+
+
+def launch_hamming_matrix(lib, a, b, out=None) -> torch.Tensor:
+    """Allocate the matrix (unless ``out`` is given) and launch the kernel
+    on checked, contiguous CUDA inputs."""
+    global hamming_matrix_launches
+    batched = a.dim() == 3
+    B = a.shape[0] if batched else 1
+    N, M = a.shape[-2], b.shape[-2]
+    if B > _GRID_MAX or -(-N // _TILE_N) > _GRID_MAX:
+        raise ValueError(f"hamming_matrix: B={B}, N={N} exceed the grid")
+    shape = (B, N, M) if batched else (N, M)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    elif (out.shape != shape or out.dtype != torch.int32 or not out.is_contiguous()
+          or out.device != a.device):
+        raise ValueError("hamming_matrix: out must be a contiguous int32 "
+                         f"tensor of shape {shape} on {a.device}")
+    if B * N * M > 0:
+        with torch.cuda.device(a.device):
+            err = lib.svi_hamming_matrix(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, M,
+                torch.cuda.current_stream().cuda_stream)
+        cuda_build.check_launch(err, "svi_hamming_matrix")
+        hamming_matrix_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# matchers
+# ---------------------------------------------------------------------------
+
+def _masked(d, query_valid, ref_valid, both: bool):
+    big = torch.full_like(d, _BIG)
+    if ref_valid is not None:
+        d = torch.where(ref_valid[None, :], d, big)
+    if both and query_valid is not None:
+        d = torch.where(query_valid[:, None], d, big)
+    return d
+
+
+def match_nearest(query: torch.Tensor, ref: torch.Tensor, cutoff: int,
+                  query_valid: torch.Tensor | None = None,
+                  ref_valid: torch.Tensor | None = None):
+    """Nearest-neighbour Hamming matching with a distance cutoff.
+
+    The batched equivalent of ``CBTree::match`` (CBTree.h:198-236): for each
+    query descriptor the best reference index (the first on ties), its
+    distance, and an acceptance mask (distance <= cutoff, both sides valid).
+
+    Returns: (idx [N] int32, dist [N] int32, ok [N] bool).
+    """
+    d = _masked(hamming_distance_matrix(query, ref), None, ref_valid, False)
+    idx = torch.argmin(d, dim=1)
+    dist = torch.gather(d, 1, idx[:, None])[:, 0]
+    ok = dist <= cutoff
+    if query_valid is not None:
+        ok = ok & query_valid
+    return idx.to(torch.int32), dist, ok
+
+
+def match_mutual(query: torch.Tensor, ref: torch.Tensor, cutoff: int,
+                 query_valid: torch.Tensor | None = None,
+                 ref_valid: torch.Tensor | None = None):
+    """Mutual-nearest (one-to-one) Hamming matching: a pair (i, j) survives
+    iff j is i's nearest reference AND i is j's nearest query AND
+    d <= cutoff (ties go to the first index on both sides).
+
+    Returns: (idx [N] int32, dist [N] int32, ok [N] bool).
+    """
+    d = _masked(hamming_distance_matrix(query, ref), query_valid, ref_valid, True)
+    fwd = torch.argmin(d, dim=1)                     # best ref per query
+    bwd = torch.argmin(d, dim=0)                     # best query per ref
+    dist = torch.gather(d, 1, fwd[:, None])[:, 0]
+    mutual = bwd[fwd] == torch.arange(d.shape[0], device=d.device)
+    ok = mutual & (dist <= cutoff)
+    if query_valid is not None:
+        ok = ok & query_valid
+    return fwd.to(torch.int32), dist, ok
+
+
+def count_matches(query: torch.Tensor, ref: torch.Tensor, cutoff: int,
+                  query_valid: torch.Tensor | None = None,
+                  ref_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Number of queries whose nearest reference is within the cutoff —
+    the place-recognition score (``getNumberOfMatches``, CBTree.h)."""
+    _, _, ok = match_nearest(query, ref, cutoff, query_valid, ref_valid)
+    return torch.sum(ok)

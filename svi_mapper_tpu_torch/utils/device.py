@@ -33,3 +33,17 @@ def require_fp32_matmul(t: torch.Tensor) -> None:
         raise RuntimeError(
             "torch.backends.cuda.matmul.allow_tf32 is True: the map "
             "optimisation needs float32 matrix products; set it to False")
+
+
+def fetch_numpy(tensors) -> tuple:
+    """Numpy copies of several tensors of one device through ONE
+    device->host copy (float64 holds every float32, int32, uint8 and bool
+    value exactly)."""
+    tensors = list(tensors)
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).cpu()
+    out, at = [], 0
+    for t in tensors:
+        part = flat[at: at + t.numel()].reshape(t.shape).to(t.dtype)
+        out.append(part.numpy())
+        at += t.numel()
+    return tuple(out)

@@ -33,14 +33,15 @@ def test_module_layout_mirrors_the_jax_package():
         "models.frame", "models.tracker", "io.synthetic", "utils.errors",
         "ops.ba_kernel", "solvers.ba", "solvers.ba_prep", "solvers.pose_graph",
         "solvers.icp", "mapping.bitstats", "mapping.vocabulary",
+        "mapping.closure", "models.slam", "io.g2o_export", "ops.paths",
     }
     have = {m.removeprefix("svi_mapper_tpu_torch.") for m in MODULES}
     assert expected <= have
     for name in expected - {"convert"}:
         assert (REPO / "svi_mapper_tpu" / (name.replace(".", "/") + ".py")).exists(), name
     sources = sorted(p.name for p in (REPO / "svi_mapper_tpu_torch" / "csrc").glob("*.cu"))
-    assert sources == ["brief_dense.cu", "schur_assemble.cu", "stereo_profiles.cu",
-                       "track_scores.cu"]
+    assert sources == ["brief_dense.cu", "hamming_matrix.cu", "schur_assemble.cu",
+                       "stereo_profiles.cu", "track_scores.cu"]
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -199,6 +200,67 @@ def test_schur_wrappers_take_plain_version_on_cpu():
         assert torch.equal(a, b)
 
 
+def test_closure_entry_points_raise_without_device(rng):
+    """The closure slice keeps the rule: ``device=None`` means CUDA."""
+    _no_cuda()
+    from svi_mapper_tpu_torch import convert
+    from svi_mapper_tpu_torch.io.synthetic import SyntheticSequence, default_camera
+    from svi_mapper_tpu_torch.mapping.closure import KeyframeDatabase
+    from svi_mapper_tpu_torch.models.slam import SLAMSystem
+
+    cam = default_camera(128, 64, device="cpu")
+    db = KeyframeDatabase.create(4, 8, device="cpu")
+    calls = [
+        lambda: KeyframeDatabase.create(4, 8),
+        lambda: SLAMSystem(cam),
+        lambda: SyntheticSequence(n_frames=2, trajectory="loop"),
+        lambda: convert.keyframe_db_from_numpy(convert.keyframe_db_to_numpy(db)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert convert.keyframe_db_from_numpy(convert.keyframe_db_to_numpy(db),
+                                          device="cpu").device.type == "cpu"
+
+
+def test_left_out_options_raise_not_implemented():
+    """What the closure slice left out says so (ROADMAP queue 1 item 7c) and
+    is never silently ignored."""
+    from svi_mapper_tpu_torch.io.synthetic import default_camera
+    from svi_mapper_tpu_torch.mapping.closure import KeyframeDatabase
+    from svi_mapper_tpu_torch.models.slam import SLAMSystem
+
+    cam = default_camera(128, 64, device="cpu")
+    for kw in (dict(async_closure=True), dict(overlap_backend=True),
+               dict(native_index=True)):
+        with pytest.raises(NotImplementedError, match="item 7c"):
+            SLAMSystem(cam, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        KeyframeDatabase.create(4, 8, native_index=True, device="cpu")
+
+
+def test_kernel_paths_report():
+    """The port's path report names real call sites and reads the six
+    launch counters."""
+    from svi_mapper_tpu_torch.ops import hamming, paths
+
+    report = paths.kernel_paths(device="cpu")
+    assert report["closure_pool_counts"] == "torch:hamming_packed"
+    assert report["ba_schur_K8"] == "torch:materialised"
+    on_card = paths.kernel_paths((8, 40, 64, 256), device="cuda")   # by shape only
+    assert on_card["closure_match_exact"] == "cuda:hamming_matrix"
+    assert on_card["ba_schur_K8"] == "cuda:schur_assemble"
+    assert on_card["ba_schur_K64"] == "cuda:schur_assemble_tiled"
+    assert on_card["ba_schur_K40"] == on_card["ba_schur_K256"] == "torch:materialised"
+    assert set(report["launches"]) == {
+        "track_scores", "stereo_profiles", "brief_dense_fused", "schur_assemble",
+        "schur_assemble_tiled", "hamming_matrix"}
+    hamming.hamming_matrix_launches = 3
+    assert paths.launch_counts()["hamming_matrix"] == 3
+    paths.reset_launch_counts()
+    assert sum(paths.launch_counts().values()) == 0
+
+
 def test_fp32_matmul_guard():
     """Nothing flips TF32; the guard only looks at CUDA tensors."""
     from svi_mapper_tpu_torch.utils.device import require_fp32_matmul
@@ -218,10 +280,11 @@ def test_kernel_build_needs_a_compiler():
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_build.load_library()
     assert [p.name for p in cuda_build.sources()] == [
-        "brief_dense.cu", "schur_assemble.cu", "stereo_profiles.cu", "track_scores.cu"]
+        "brief_dense.cu", "hamming_matrix.cu", "schur_assemble.cu",
+        "stereo_profiles.cu", "track_scores.cu"]
     assert set(cuda_build._SIGNATURES) == {
         "svi_track_scores", "svi_stereo_profiles", "svi_brief_dense_fused",
-        "svi_schur_assemble", "svi_schur_assemble_tiled"}
+        "svi_schur_assemble", "svi_schur_assemble_tiled", "svi_hamming_matrix"}
     # each exported name is defined, with as many parameters, in a source
     import re
     text = "".join(p.read_text() for p in cuda_build.sources())

@@ -80,4 +80,48 @@ def test_render_stereo_close(frame):
 
 def test_unknown_trajectory_rejected():
     with pytest.raises(ValueError):
-        syn.SyntheticSequence(n_frames=2, trajectory="loop", device="cpu")
+        syn.SyntheticSequence(n_frames=2, trajectory="spiral", device="cpu")
+
+
+@pytest.mark.parametrize("n,radius,per_loop", [(30, 12.0, None), (46, 26.0, 40), (8, 5.0, 8)])
+def test_loop_trajectory_matches(n, radius, per_loop):
+    a = syn.loop_trajectory(n, radius, frames_per_loop=per_loop)
+    b = jsyn.loop_trajectory(n, radius, frames_per_loop=per_loop)
+    assert a.shape == b.shape == (n, 4, 4) and a.dtype == np.float32
+    # steps of 0.15 .. 0.8 rad: the twist's series are well conditioned
+    np.testing.assert_allclose(a, b, atol=1e-6)
+    if per_loop == n:                    # one full turn comes home
+        np.testing.assert_allclose(a[-1], np.eye(4), atol=1e-4)
+
+
+@pytest.mark.parametrize("radius,kw", [(100.0, {}), (26.0, dict(n_segments=8)),
+                                       (6.0, dict(half_width=9.0))])
+def test_ring_world_planes_equal(radius, kw):
+    a, b = syn.ring_world(radius, **kw), jsyn.ring_world(radius, **kw)
+    assert a == b
+    # a ring narrower than its half width has no inner fence
+    assert len(a) == 1 + (2 if radius > 10 else 1) * kw.get("n_segments", 16)
+
+
+def test_ring_frame_close():
+    """A frame of a loop sequence in the ring world, through both renderers,
+    within the bounds of the corridor frames above."""
+    world = syn.ring_world(26.0)
+    jseq = jsyn.SyntheticSequence(n_frames=12, width=384, height=192, trajectory="loop",
+                                  loop_radius=26.0, world=jsyn.ring_world(26.0))
+    tseq = syn.SyntheticSequence(n_frames=12, width=384, height=192, trajectory="loop",
+                                 loop_radius=26.0, world=world, device="cpu")
+    np.testing.assert_allclose(tseq.poses_wc, jseq.poses_wc, atol=1e-6)
+    jl, jr, T = jseq.frame(5)
+    tl, tr, T_t = tseq.frame(5)
+    np.testing.assert_array_equal(T_t, tseq.poses_wc[5])
+    for a, b in ((tl, jl), (tr, jr)):
+        a, b = a.numpy(), np.asarray(b)
+        assert a.shape == b.shape == (192, 384) and np.isfinite(a).all()
+        d = np.abs(a - b)
+        assert d.mean() < 0.5
+        assert (d > 100.0).mean() < 1e-3
+    # the world is in view: most pixels hit a plane, and not the corridor's
+    assert (tl.numpy() > 0).mean() > 0.5
+    corridor = syn.render_stereo(tseq.cam, tseq.poses_wc[5])[0].numpy()
+    assert np.abs(corridor - tl.numpy()).mean() > 1.0

@@ -201,3 +201,114 @@ def clustered_descs(rng, n_clusters, per_cluster, flip_bits=8):
 
 def random_descs(rng, n):
     return rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# seeded keyframe pools of the closure slice (numpy only)
+# ---------------------------------------------------------------------------
+
+def flip_bits(rng, desc, n_bits):
+    """A copy of uint32 descriptors ``[n, 8]`` with ``n_bits`` random bits
+    of each flipped."""
+    out = desc.copy()
+    for row in out:
+        for b in rng.choice(256, size=n_bits, replace=False):
+            row[b // 32] ^= np.uint32(1 << (b % 32))
+    return out
+
+
+def bit_prob_of(rng, desc, noise=20):
+    """uint8 bit probabilities ``[n, 256]`` near the descriptor's own bits:
+    0/255 moved inward by up to ``noise``."""
+    bits = ((desc[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1).reshape(len(desc), 256)
+    jitter = rng.integers(0, noise + 1, bits.shape)
+    return np.where(bits == 1, 255 - jitter, jitter).astype(np.uint8)
+
+
+def keyframe_pools(seed=0, n_kf=40, pool=64, revisits=None, decoys=None,
+                   twins=None, spacing=3.0, flip=6, point_noise=0.02):
+    """Keyframe pools along a straight drive, ``spacing`` m apart, with
+    planted revisits and decoys (numpy only). Returns a list of dicts
+    ``{desc [n,8] uint32, p_cam [n,3], T_wc [4,4], prob [n,256] uint8}`` and
+    the dict ``T_qr_true`` of planted relative transforms.
+
+    * ``revisits`` ``{q: r}``: keyframe ``q`` sees the pool of ``r`` again:
+      its descriptors with ``flip`` bits flipped, in another order, its
+      points moved by a known ``T_qr`` plus ``point_noise`` m, and a pose
+      that lies ``T_qr`` from ``r``'s (so the radius gate passes);
+    * ``decoys`` ``{q: r}``: the descriptors of ``r`` again, but with the
+      points scrambled, so that matching succeeds and the ICP must refuse;
+    * ``twins`` ``{q: r}``: ``q`` is an exact copy of ``r`` (pool, points
+      and pose): equal BoW scores and equal match counts against any query.
+    Keyframe pools hold between ``pool - 8`` and ``pool`` entries."""
+    rng = np.random.default_rng(seed)
+    revisits, decoys, twins = revisits or {}, decoys or {}, twins or {}
+    out, T_qr_true = [], {}
+    for k in range(n_kf):
+        n = int(rng.integers(pool - 8, pool + 1))
+        desc = random_descs(rng, n)
+        p = np.stack([rng.uniform(-8, 8, n), rng.uniform(-2, 2, n),
+                      rng.uniform(4, 30, n)], -1).astype(np.float32)
+        T = np.eye(4)
+        T[:3, 3] = [-spacing * k, 0.0, 0.0]
+        src = revisits.get(k, decoys.get(k, twins.get(k)))
+        if src is not None:
+            ref = out[src]
+            desc, p, T = ref["desc"].copy(), ref["p_cam"].copy(), ref["T_wc"].copy()
+        if k in revisits:
+            order = rng.permutation(len(desc))
+            desc = flip_bits(rng, desc[order], flip)
+            T_qr = exp_se3_np(rng.normal(0, [0.3, 0.1, 0.3, 0.01, 0.03, 0.01]))
+            p = (p[order] @ T_qr[:3, :3].T + T_qr[:3, 3]
+                 + rng.normal(0, point_noise, p.shape)).astype(np.float32)
+            T = T_qr @ T
+            T_qr_true[k] = T_qr
+        elif k in decoys:
+            desc = flip_bits(rng, desc, flip)
+            p = p[rng.permutation(len(p))] + rng.normal(0, 3.0, p.shape).astype(np.float32)
+        out.append(dict(desc=desc, p_cam=p.astype(np.float32),
+                        T_wc=T.astype(np.float32),
+                        prob=bit_prob_of(rng, desc)))
+    return out, T_qr_true
+
+
+def vocabulary_dict(jvocab) -> dict:
+    return {"k": jvocab.k, "levels": jvocab.levels,
+            "centroids": [np.asarray(c) for c in jvocab.centroids],
+            "child_valid": [np.asarray(v) for v in jvocab.child_valid],
+            "weights": np.asarray(jvocab.weights)}
+
+
+def keyframe_db_dict(jdb) -> dict:
+    """The JAX package's ``KeyframeDatabase`` as the numpy dictionary that
+    ``convert.keyframe_db_from_numpy`` takes."""
+    bow = None
+    if jdb.bow is not None:
+        bow = {"vocab": vocabulary_dict(jdb.bow.vocab),
+               "vectors": np.asarray(jdb.bow.vectors), "n": jdb.bow.n}
+    return {
+        "capacity": jdb.capacity, "pool_size": jdb.pool_size, "n": jdb.n,
+        "desc": np.asarray(jdb.desc), "p_cam": np.asarray(jdb.p_cam),
+        "valid": np.asarray(jdb.valid), "count": np.asarray(jdb.count),
+        "T_wc": np.asarray(jdb.T_wc),
+        "prob": None if jdb.prob is None else np.asarray(jdb.prob),
+        "count_host": list(jdb.count_host), "auto_vocab": jdb.auto_vocab,
+        "vocab_train_at": jdb.vocab_train_at, "bow": bow,
+    }
+
+
+def fill_databases(pools, capacity=16, pool_size=64, store_prob=True,
+                   with_prob=True):
+    """The same pools added one by one to a JAX ``KeyframeDatabase`` and to
+    the port's (on the CPU): ``(jdb, tdb)``."""
+    from svi_mapper_tpu.mapping import closure as jclosure
+    from svi_mapper_tpu_torch.mapping import closure as tclosure
+
+    jdb = jclosure.KeyframeDatabase.create(capacity, pool_size, store_prob=store_prob)
+    tdb = tclosure.KeyframeDatabase.create(capacity, pool_size, store_prob=store_prob,
+                                           device=CPU)
+    for kf in pools:
+        prob = kf["prob"] if (with_prob and store_prob) else None
+        jdb.add(kf["desc"], kf["p_cam"], kf["T_wc"], prob=prob)
+        tdb.add(kf["desc"], kf["p_cam"], kf["T_wc"], prob=prob)
+    return jdb, tdb
