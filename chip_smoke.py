@@ -106,6 +106,25 @@ def unique_pixels(h, w, ys, xs) -> int:
     return int(mask.sum())
 
 
+def sm_clock_hz() -> float | None:
+    """The card's highest SM clock, as ``nvidia-smi`` gives it."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, check=True).stdout
+        return float(out.split()[0]) * 1e6
+    except (OSError, ValueError, IndexError, subprocess.CalledProcessError):
+        return None
+
+
+def ceiling_ms(count: float, per_clock: float, sms: int = 132) -> float | None:
+    """A design's ceiling: the time ``count`` operations of one kind take
+    when each SM issues ``per_clock`` of them per clock at its highest
+    clock (None when ``nvidia-smi`` does not give the clock)."""
+    hz = sm_clock_hz()
+    return None if hz is None else count / (per_clock * sms * hz) * 1e3
+
+
 def bound(bytes_moved: float, operations: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = operations / PEAK_OPS_PER_S * 1e3
@@ -116,11 +135,21 @@ def bound(bytes_moved: float, operations: float) -> tuple[float, str]:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# predictions far outside the image (held against the plain version's
+# saturating rule) and on exact halves (round half to even)
+EXTREME_UV = [[3e9, 40.0], [-3e9, 41.0], [1e20, 42.0], [-1e20, 43.0],
+              [60.0, 3e9], [61.0, -3e9], [62.0, 1e20], [63.0, -1e20]]
+HALF_UV = [[20.5, 30.5], [21.5, 31.5], [22.5, 32.5], [23.5, 33.5]]
+
+
 def kernel_inputs(seed: int, h: int, w_raw: int, n: int, device):
     """Images and per-landmark inputs made from a seed, at a given shape:
     a rendered stereo pair, predictions (some on the border, some
-    non-finite), descriptors sampled near the predictions so that matches
-    exist, and random oriented bands."""
+    non-finite, some far outside the image, some on exact halves),
+    descriptors sampled near the predictions so that matches exist, and
+    random oriented bands as one ``[5, n]`` tensor, among them bands with
+    ``nxq = 0`` or ``nyq = 0``, bands that miss the window and the full
+    reach (ru = 28, rv = 20)."""
     import numpy as np
     import torch
 
@@ -137,17 +166,30 @@ def kernel_inputs(seed: int, h: int, w_raw: int, n: int, device):
     uv[1] = [np.inf, -np.inf]
     uv[2] = [0.0, 0.0]
     uv[3] = [w_raw - 1, h - 1]
+    extreme = np.arange(4, 4 + len(EXTREME_UV))
+    uv[extreme] = EXTREME_UV
+    uv[extreme[-1] + 1:extreme[-1] + 1 + len(HALF_UV)] = HALF_UV
     theta = rng.uniform(0, 2 * np.pi, n)
-    band = (np.round(np.cos(theta) * 256), np.round(np.sin(theta) * 256),
-            rng.integers(-800, 800, n), rng.integers(1, tk.REACH_X + 1, n),
-            rng.integers(1, tk.REACH_Y + 1, n))
-    offs = rng.integers(-6, 7, (n, 2)).astype(np.float32)
+    band = np.stack([np.round(np.cos(theta) * 256), np.round(np.sin(theta) * 256),
+                     rng.integers(-800, 800, n), rng.integers(1, tk.REACH_X + 1, n),
+                     rng.integers(1, tk.REACH_Y + 1, n)]).astype(np.int64)
+    k = np.arange(n)
+    sign = np.where(rng.random(n) < 0.5, -256, 256)
+    # unit normals along an axis: nxq = 0 (a horizontal band), nyq = 0
+    band[:2, k % 7 == 1] = [[0], [1]] * sign[k % 7 == 1]
+    band[:2, k % 7 == 2] = [[1], [0]] * sign[k % 7 == 2]
+    band[2, k % 11 == 3] = 90000                  # misses the window
+    band[3:, k % 5 == 4] = [[tk.REACH_X], [tk.REACH_Y]]   # the full reach
+    # the near predictions: the far ones read the image's edge pixels
+    near = np.clip(np.nan_to_num(uv, nan=0.0, posinf=0.0, neginf=0.0), -1e6, 1e6)
+    near += rng.integers(-6, 7, (n, 2))
+    flip = rng.integers(0, 2 ** 31, (n, 8)) * (rng.random((n, 8)) < 0.05)
+    flip[extreme] = 0            # so the far predictions do find their match
     to = lambda a, dt: torch.from_numpy(np.asarray(a).astype(dt)).to(device)  # noqa: E731
     return dict(
         img_l=img_l, img_r=img_r, uv=to(uv, np.float32),
-        uv_near=to(np.nan_to_num(uv, nan=0.0, posinf=0.0, neginf=0.0) + offs, np.float32),
-        band=tuple(to(b, np.int32) for b in band),
-        flip=to(rng.integers(0, 2 ** 31, (n, 8)) * (rng.random((n, 8)) < 0.05), np.int32),
+        uv_near=to(near, np.float32), band=to(band, np.int32), flip=to(flip, np.int32),
+        extreme=torch.from_numpy(extreme).to(device),
     )
 
 
@@ -191,6 +233,11 @@ def check_kernels(device, h: int, w_raw: int, n: int, max_disparity: int,
         k3["plain_ms"] = time_ms(lambda: descriptors.smooth_brief_dense_plain(img_l), 3, 1)
         k3["bound_ms"], k3["bound_by"] = bound(px * 4 + px * 32 + 256 * 16,
                                                px * (256 + 20))
+        # the design's shared loads per pixel, and the time they take at
+        # one warp-wide load per clock and SM
+        design = descriptors.brief_schedule_stats(descriptors.BRIEF_ROWS)
+        loads = design["compare_loads_per_pixel"] + design["blur_loads_per_pixel"]
+        k3["design"] = {**design, "ceiling_ms": ceiling_ms(px * loads / 32, 1)}
     results.append(k3)
 
     # --- K1: window scoring ----------------------------------------------
@@ -206,29 +253,42 @@ def check_kernels(device, h: int, w_raw: int, n: int, max_disparity: int,
     require(n_accept > n // 20, f"only {n_accept} of {n} windows accept a match")
     require(all(torch.equal(g, w) for g, w in zip(got, want)),
             "track_scores disagrees with window_scores")
-    k1 = dict(name="track_scores", max_abs_err=err1, accepted=n_accept)
+    # the far predictions are rounded and clamped in the kernel: they find
+    # their match at the image's edge, as the plain version says
+    require(bool((want[0][inp["extreme"]] < track_kernel.BIG).all()),
+            "a prediction far outside the image found no match")
+    origin = track_kernel.window_origin(inp["uv"], h, wp)
+    mask = track_kernel.listed_mask(*track_kernel.tier_row_intervals(*origin, inp["band"]))
+    listed = mask.sum((1, 2))
+    win = track_kernel.WIN_H * track_kernel.WIN_W
+    k1 = dict(name="track_scores", max_abs_err=err1, accepted=n_accept,
+              pixels_scored_per_landmark={"mean": float(listed.float().mean()),
+                                          "max": int(listed.max()), "window": win})
     if timed:
-        _, _, x0, y0 = track_kernel.window_origin(inp["uv"], h, wp)
+        _, _, x0, y0 = origin
         rows = torch.arange(track_kernel.WIN_H, device=device)
         cols = torch.arange(track_kernel.WIN_W, device=device)
         ys = (y0[:, None, None] + rows[None, :, None]).expand(-1, -1, track_kernel.WIN_W)
         xs = (x0[:, None, None] + cols[None, None, :]).expand(-1, track_kernel.WIN_H, -1)
-        touched = unique_pixels(h, wp, ys, xs)
-        win = track_kernel.WIN_H * track_kernel.WIN_W
+        # the field pixels the tiers can accept: all the function needs
+        touched = unique_pixels(h, wp, ys[mask], xs[mask])
+        scored = int(listed.sum())
         k1["ms"] = time_ms(lambda: track_kernel.track_scores(*args, **cuts), 50)
-        # the launch alone, without the wrapper's small PyTorch launches
-        origin = [t.contiguous() for t in track_kernel.window_origin(inp["uv"], h, wp)]
+        # the launch alone, without the wrapper's checks
         launch1 = lambda: track_kernel.launch_track_scores(  # noqa: E731
-            cuda_build.load_library(), field_l, origin, inp["band"], desc_last,
+            cuda_build.load_library(), field_l, inp["uv"], inp["band"], desc_last,
             desc_ref, 25, 50, 50)
         k1["launch_only_ms"] = time_ms(launch1, 50)
         k1["device_ms"] = traced_device_ms(launch1, ("track_scores_kernel",))
         k1["plain_ms"] = time_ms(lambda: track_kernel.window_scores(*args, **cuts), 3, 1)
-        # field pixels touched, 9 ints + 2 floats + 2 descriptors in and
+        # field pixels touched, 2 floats + 5 ints + 2 descriptors in and
         # 4 ints out per landmark; 16 xor + 16 popcount + 14 add + ~20 for
-        # the tiers and the key per window pixel
+        # the tiers and the key per scored pixel
         k1["bound_ms"], k1["bound_by"] = bound(
-            touched * 32 + n * (5 * 4 + 2 * 4 + 2 * 32 + 4 * 4), n * win * 66)
+            touched * 32 + n * (2 * 4 + 5 * 4 + 2 * 32 + 4 * 4), scored * 66)
+        # its popcounts at 16 per clock and SM
+        k1["design"] = {"pixels_scored": scored, "popcounts": 16 * scored,
+                        "ceiling_ms": ceiling_ms(16 * scored, 16)}
     results.append(k1)
 
     k1["planted"] = check_track_scores_planted(device, h, wp, n)
@@ -272,7 +332,10 @@ def check_track_scores_planted(device, h: int, w: int, n: int) -> dict:
     on, just inside or just outside that candidate, the reach exactly at or
     one short of it, and the candidate's two Hamming distances at or one
     over the cutoffs: every ``<=`` of the acceptance rule decides some
-    landmark's outcome."""
+    landmark's outcome. Every eighth prediction lies on an exact half (the
+    rounding decides the reach). The last two landmarks accept nothing, one
+    with the band through window position 0, one with position 0 off every
+    region: both must return position 0, as the plain version does."""
     import numpy as np
     import torch
 
@@ -283,6 +346,8 @@ def check_track_scores_planted(device, h: int, w: int, n: int) -> dict:
     field = torch.randint(-2 ** 31, 2 ** 31, (h, w, 8), generator=gen,
                           device=device, dtype=torch.int64).to(torch.int32)
     uv = np.stack([rng.uniform(0, w - 1, n), rng.uniform(0, h - 1, n)], 1)
+    uv[::8] = np.floor(uv[::8]) + 0.5
+    uv[-2:] = [[w / 2, h / 2], [w / 2 + 0.5, h / 2 + 0.5]]   # inside, away from the edges
     uv = uv.astype(np.float32)
     u_r = np.clip(np.round(uv[:, 0]), 0, w - 1).astype(np.int64)
     v_r = np.clip(np.round(uv[:, 1]), 0, h - 1).astype(np.int64)
@@ -300,6 +365,11 @@ def check_track_scores_planted(device, h: int, w: int, n: int) -> dict:
     short = (np.arange(n) // 5) % 3
     ru = np.abs(dx) - (short == 1)
     rv = np.abs(dy) - (short == 2)
+    # the last two: full reach; the band through position 0 (dx = -28,
+    # dy = -20 from the prediction) or far from the window
+    ru[-2:], rv[-2:] = tk.REACH_X, tk.REACH_Y
+    c0q[-2] = nxq[-2] * tk.REACH_X + nyq[-2] * tk.REACH_Y
+    c0q[-1] = 90000
     to = lambda a, dt: torch.from_numpy(np.asarray(a).astype(dt)).to(device)  # noqa: E731
     desc = field[to(ty, np.int64), to(tx, np.int64)]
     # Hamming distances of the candidate to the last / anchor descriptor, at
@@ -307,6 +377,7 @@ def check_track_scores_planted(device, h: int, w: int, n: int) -> dict:
     # anchor gate)
     d_last = np.array([3, 25, 26, 50, 51])[(np.arange(n) // 15) % 5]
     d_ref = np.array([0, 50, 51])[(np.arange(n) // 75) % 3]
+    d_ref[-2:] = 128             # the anchor matches no pixel of the window
 
     def low_bits(counts):
         """[n, 8] int32 words with the lowest ``counts[i]`` bits set."""
@@ -314,9 +385,8 @@ def check_track_scores_planted(device, h: int, w: int, n: int) -> dict:
         w32 = (bit.reshape(n, 8, 32) * (1 << np.arange(32, dtype=np.uint64))).sum(-1)
         return to(w32.astype(np.uint32).view(np.int32), np.int32)
 
-    args = (field, to(uv, np.float32), desc ^ low_bits(d_last),
-            desc ^ low_bits(d_ref),
-            tuple(to(b, np.int32) for b in (nxq, nyq, c0q, ru, rv)))
+    band = to(np.stack([nxq, nyq, c0q, ru, rv]), np.int32)
+    args = (field, to(uv, np.float32), desc ^ low_bits(d_last), desc ^ low_bits(d_ref), band)
     cuts = dict(cutoff_s1=25, cutoff_s2=50, cutoff_ref=50)
     got = tk.track_scores(*args, **cuts)
     torch.cuda.synchronize()
@@ -333,12 +403,85 @@ def check_track_scores_planted(device, h: int, w: int, n: int) -> dict:
                               | ((near | (on_band & in_reach)) & (d_last <= 50)))
     require(bool((accepted == expect).all()),
             "planted candidates were not accepted as their bands and reaches say")
+    origin = tk.window_origin(args[1], h, w)
+    listed = tk.listed_mask(*tk.tier_row_intervals(*origin, band))
+    require(bool(listed[-2, 0, 0]) and not bool(listed[-1, 0, 0])
+            and not accepted[-2:].any()
+            and all(int(v[-1]) == int(o[-1]) and int(v[-2]) == int(o[-2])
+                    for v, o in zip(want[1:3], origin[2:4])),
+            "the landmarks that accept nothing do not return window position 0")
     far = ~near
     return {"landmarks": n, "accepted": int(accepted.sum()),
             "decided_by_stage3": int((accepted & far).sum()),
             "rejected_at_band_edge": int((far & in_reach & ~on_band).sum()),
             "rejected_at_reach": int((far & on_band & ~in_reach).sum()),
-            "rejected_at_cutoff": int(((d_ref > 50) | (d_last > 50)).sum())}
+            "rejected_at_cutoff": int(((d_ref > 50) | (d_last > 50)).sum()),
+            "on_exact_halves": int((uv[:, 0] % 1 == 0.5).sum())}
+
+
+class TrackInputs:
+    """While in use, notes what the tracker hands K1 on a main path: the
+    field's shape, the predictions and the bands of every call (references
+    only: no copy, no host read), and a copy of all the inputs of call
+    number ``sample``, for timing after the path."""
+
+    def __init__(self, sample: int):
+        self.sample, self.calls, self.sampled = sample, [], None
+
+    def __enter__(self):
+        from svi_mapper_tpu_torch.frontend import tracking
+
+        self.wrapped = tracking.track_scores
+
+        def recording(dense_left, uv_pred, desc_last, desc_ref, band, **cuts):
+            if len(self.calls) == self.sample:
+                self.sampled = ([t.clone() for t in (dense_left, uv_pred, desc_last,
+                                                     desc_ref, band)], cuts)
+            self.calls.append((dense_left.shape[:2], uv_pred, band))
+            return self.wrapped(dense_left, uv_pred, desc_last, desc_ref, band, **cuts)
+
+        tracking.track_scores = recording
+        return self
+
+    def __exit__(self, *exc):
+        from svi_mapper_tpu_torch.frontend import tracking
+
+        tracking.track_scores = self.wrapped
+
+    def report(self) -> dict:
+        """Pixels K1 listed per landmark over every call (from
+        ``tier_row_intervals``, as the kernel lists them), and K1 on the
+        sampled call's inputs: held against its plain version and timed.
+        Launches K1 (after the path's counts were read)."""
+        import torch
+
+        from svi_mapper_tpu_torch.ops import cuda_build
+        from svi_mapper_tpu_torch.ops import track_kernel as tk
+
+        listed = torch.cat([
+            tk.listed_mask(*tk.tier_row_intervals(*tk.window_origin(uv, h, w), band))
+            .sum((1, 2)) for (h, w), uv, band in self.calls])
+        out = {"calls": len(self.calls),
+               "pixels_scored_per_landmark": {
+                   "mean": float(listed.float().mean()), "max": int(listed.max()),
+                   "window": tk.WIN_H * tk.WIN_W}}
+        if self.sampled is not None:
+            (field, uv, d_last, d_ref, band), cuts = self.sampled
+            args = (field, uv, d_last, d_ref, band)
+            got = tk.track_scores(*args, **cuts)
+            want = tk.window_scores(*args, **cuts)
+            require(all(torch.equal(g, w_) for g, w_ in zip(got, want)),
+                    "track_scores disagrees with window_scores on a main path's inputs")
+            launch = lambda: tk.launch_track_scores(  # noqa: E731
+                cuda_build.load_library(), field, uv, band, d_last, d_ref,
+                cuts["cutoff_s1"], cuts["cutoff_s2"], cuts["cutoff_ref"])
+            sampled = tk.listed_mask(*tk.tier_row_intervals(
+                *tk.window_origin(uv, *field.shape[:2]), band)).sum((1, 2))
+            out["sampled_call"] = {
+                "call": self.sample, "equal_to_plain": True,
+                "pixels_scored_mean": float(sampled.float().mean()),
+                "device_ms": traced_device_ms(launch, ("track_scores_kernel",))}
+        return out
 
 
 FRONTEND_KERNELS = ("track_scores", "stereo_profiles", "brief_dense_fused")
@@ -494,14 +637,15 @@ def run_main_path(device, profile: bool = False) -> tuple[dict, dict]:
     reset_launch_counts()
     frame_s = []
     outs = []
-    for i in range(n_single):
+    with TrackInputs(sample=n_single // 2) as k1_inputs:
+        for i in range(n_single):
+            t0 = time.perf_counter()
+            outs.append(tracker.process(imgs_l[i], imgs_r[i]))
+            frame_s.append(time.perf_counter() - t0)      # process() reads the outputs
         t0 = time.perf_counter()
-        outs.append(tracker.process(imgs_l[i], imgs_r[i]))
-        frame_s.append(time.perf_counter() - t0)      # process() reads the outputs
-    t0 = time.perf_counter()
-    outs += tracker.process_many(imgs_l[n_single:], imgs_r[n_single:], chunk=chunk)
-    torch.cuda.synchronize()
-    chunked_s = time.perf_counter() - t0
+        outs += tracker.process_many(imgs_l[n_single:], imgs_r[n_single:], chunk=chunk)
+        torch.cuda.synchronize()
+        chunked_s = time.perf_counter() - t0
     counts = launch_counts()
 
     require(len(outs) == n == tracker.frame_count,
@@ -551,6 +695,8 @@ def run_main_path(device, profile: bool = False) -> tuple[dict, dict]:
         "process_many_frames_per_s": n_chunked / chunked_s,
         "launches_per_frame": {k: counts[k] / n for k in FRONTEND_KERNELS},
         "host_syncs_per_frame": syncs,
+        # K1 on the bands this path built
+        "track_scores_on_path": k1_inputs.report(),
     }
     if profile:
         report["profile"] = profile_frames(tracker, imgs_l, imgs_r,
@@ -705,6 +851,30 @@ def ptxas_report(source: str, marker: str) -> list[dict]:
             s = re.search(r"(\d+) bytes smem", line)
             rows[-1]["static_smem"] = int(s.group(1)) if s else 0
     return [r for r in rows if marker in r["kernel"]]
+
+
+def sass_count(kernel: str, opcode: str) -> int | None:
+    """Instructions of one opcode (``LDS``: shared loads) in a kernel of
+    the built library, as ``cuobjdump -sass`` shows them (None without
+    ``cuobjdump``)."""
+    import re
+    import shutil
+    from pathlib import Path
+
+    from svi_mapper_tpu_torch.ops import cuda_build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    text = subprocess.run([tool, "-sass", cuda_build.load_library()._name],
+                          capture_output=True, text=True).stdout
+    count, inside = 0, False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and re.search(rf"\b{opcode}(\.|\s)", line):
+            count += 1
+    return count
 
 
 def check_schur_kernel(device, name: str, K: int, L: int, timed: bool) -> dict:
@@ -1480,11 +1650,12 @@ def run_slam_loop(device) -> tuple[dict, dict]:
     # counts the host reads there (a warning each, recorded, not printed)
     n_sync = LOOP_SYNC_CHUNKS * LOOP_CHUNK
     outs = []
-    syncs = count_host_syncs(lambda: outs.extend(slam.process_many(
-        imgs_l[:n_sync], imgs_r[:n_sync], chunk=LOOP_CHUNK)))
-    outs.extend(slam.process_many(imgs_l[n_sync:], imgs_r[n_sync:], chunk=LOOP_CHUNK))
-    slam.finalize_backend()
-    torch.cuda.synchronize()
+    with TrackInputs(sample=LOOP_FRAMES // 2) as k1_inputs:
+        syncs = count_host_syncs(lambda: outs.extend(slam.process_many(
+            imgs_l[:n_sync], imgs_r[:n_sync], chunk=LOOP_CHUNK)))
+        outs.extend(slam.process_many(imgs_l[n_sync:], imgs_r[n_sync:], chunk=LOOP_CHUNK))
+        slam.finalize_backend()
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = launch_counts()
     opt = slam.optimized_trajectory()
@@ -1562,6 +1733,8 @@ def run_slam_loop(device) -> tuple[dict, dict]:
         "host_syncs_counted_over_chunks": LOOP_SYNC_CHUNKS,
         "host_syncs_per_chunk": syncs / LOOP_SYNC_CHUNKS,
         "host_syncs_per_frame_in_chunks": syncs / n_sync,
+        # K1 on the bands this run built
+        "track_scores_on_path": k1_inputs.report(),
     }
     emit(report)             # before the checks: a failing run shows its numbers
 
@@ -1629,7 +1802,13 @@ def main() -> int:
                          max_disparity=MAX_DISPARITY, timed=True)
     emit({"phase": "kernels_full", "shape": [H, W_RAW],
           "max_abs_err": {k["name"]: k["max_abs_err"] for k in full},
-          "track_scores_planted": full[1]["planted"]})
+          "track_scores_planted": full[1]["planted"],
+          "build": {"brief_dense.cu": ptxas_report("brief_dense.cu", "kernel"),
+                    "track_scores.cu": ptxas_report("track_scores.cu", "kernel")},
+          "sass_shared_loads": {"brief_dense_kernel": sass_count("brief_dense_kernel", "LDS")},
+          # modelled, not measured: the loads or popcounts the design issues
+          # and the time they take at one issue rate per SM and clock
+          "design": {k["name"]: k["design"] for k in full if "design" in k}})
 
     backend = check_backend_kernels(device)
     emit({"phase": "kernels_backend", "tolerance": SCHUR_TOL, "shapes": backend,
@@ -1694,9 +1873,14 @@ def main() -> int:
         }
         for extra in ("launch_only_ms", "rel_err_vs_plain", "K", "L", "flops",
                       "flops_executed", "product_matmul_ms", "N", "M",
-                      "matmul_identity_ms", "bytes", "operations", "device_ms"):
+                      "matmul_identity_ms", "bytes", "operations", "device_ms",
+                      "pixels_scored_per_landmark"):
             if extra in k:
                 row[extra] = k[extra]
+        if k["name"] == "track_scores":
+            # the same count on the bands the whole system's loop built
+            row["pixels_scored_per_landmark_slam_loop"] = \
+                loop["track_scores_on_path"]["pixels_scored_per_landmark"]
         if k["name"] in BACKEND_KERNELS:
             row["at_slam_loop"] = [
                 {"K": w["K"], "L": w["L"], "windows": w["windows"],

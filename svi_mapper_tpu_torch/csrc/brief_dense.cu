@@ -1,12 +1,25 @@
 // K3: fused 5x5 box blur + dense BRIEF field.
 //
-// One block per TH x TW output tile. The raw tile plus a 17 px halo
+// Replaces the TPU kernel svi_mapper_tpu/ops/descriptors.py
+// brief_dense_fused (_brief_dense_kernel). What limits it on the card is the
+// issue of shared-memory loads (one warp-wide load per clock and SM), not
+// the 17 MB it must move; the design cuts the loads per pixel.
+//
+// One block per TILE_H x TILE_W output tile. The raw tile plus a 17 px halo
 // (15 px pattern reach + 2 px blur reach) is staged edge-clamped in shared
 // memory; the separable blur runs there (rows axis first, then columns;
 // taps in ascending order starting from 0, multiply and add rounded
 // separately with __fmul_rn/__fadd_rn so the compiler cannot contract them
-// into an FMA); then each thread compares its pixels' 256 sample pairs and
-// writes 8 packed words with two 16-byte stores.
+// into an FMA). Then each thread owns ROWS pixels stacked in one column (a
+// warp: 32 neighbouring columns, so every sample load is conflict-free).
+// The pattern is a compile-time table (brief_pattern.cuh): all ROWS * 256
+// comparisons are unrolled, each sample is a load at an immediate offset
+// from one base address, and a sample that several bits or several of the
+// thread's pixels need is loaded once (172.75 loads per pixel at ROWS = 4,
+// against 512 samples and 512 offset loads of a pattern held in memory).
+// The comparisons run in the table's ORDER, which keeps few samples held
+// between their first and last use. Each pixel's 8 words go out in two
+// 16-byte stores.
 //
 // Border semantics equal blur-then-describe on the whole image: a blurred
 // value at a coordinate outside the image is the blurred value at the
@@ -14,46 +27,66 @@
 // edge-clamped. The centre of each blur window is therefore clamped first,
 // and its taps are then read from the edge-clamped raw tile.
 //
-// The pattern (256 x (ay, ax, by, bx) offsets in [-15, 15]) is handed in by
-// the caller, who generates it from the same seed as the reference.
-//
 // Plain C interface: launches on the given stream, allocates nothing, does
-// not synchronise, returns cudaGetLastError().
+// not synchronise, returns the first CUDA error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <utility>
+
+#include "brief_pattern.cuh"
+
 namespace {
 
-constexpr int TH = 16;
-constexpr int TW = 64;
+constexpr int TH = brief::TILE_H;
+constexpr int TW = brief::TILE_W;
+constexpr int ROWS = brief::ROWS;
 constexpr int REACH = 15;             // pattern reach
 constexpr int HALO = REACH + 2;       // + blur radius
-constexpr int RAW_H = TH + 2 * HALO;  // 50
-constexpr int RAW_W = TW + 2 * HALO;  // 98
-constexpr int BL_H = TH + 2 * REACH;  // 46
-constexpr int BL_W = TW + 2 * REACH;  // 94
+constexpr int RAW_H = TH + 2 * HALO;
+constexpr int RAW_W = TW + 2 * HALO;
+constexpr int BL_H = TH + 2 * REACH;
+constexpr int BL_W = TW + 2 * REACH;
 constexpr int THREADS = 256;
+constexpr int STACKS = THREADS / TW;  // column stacks of ROWS pixels at once
+constexpr int PASSES = TH / (STACKS * ROWS);
 constexpr int BITS = 256;
+// raw tile, then the rows-axis pass; the blur is written over the raw tile
+constexpr int SMEM_BYTES = (RAW_H * RAW_W + BL_H * RAW_W) * (int)sizeof(float);
+
+static_assert(THREADS % TW == 0 && TW % 32 == 0, "a warp spans one row of a stack");
+static_assert(TH % (STACKS * ROWS) == 0, "stacks tile the block's rows");
+
+// comparison K of the order: bit `bit` of the thread's pixel `j`
+template <int K>
+__device__ __forceinline__ void compare(const float* p, uint32_t (&w)[ROWS][8]) {
+    constexpr int e = brief::order(K);
+    constexpr int bit = e / ROWS;
+    constexpr int j = e % ROWS;
+    constexpr int oa = (brief::pattern(bit, 0) + j) * BL_W + brief::pattern(bit, 1);
+    constexpr int ob = (brief::pattern(bit, 2) + j) * BL_W + brief::pattern(bit, 3);
+    if (p[oa] < p[ob]) w[j][bit >> 5] |= 1u << (bit & 31);
+}
+
+template <int... K>
+__device__ __forceinline__ void compare_all(const float* p, uint32_t (&w)[ROWS][8],
+                                            std::integer_sequence<int, K...>) {
+    (compare<K>(p, w), ...);
+}
 
 __global__ void __launch_bounds__(THREADS) brief_dense_kernel(
     const float* __restrict__ img,     // [H, W]
-    const int* __restrict__ pattern,   // [256, 4] (ay, ax, by, bx)
     uint4* __restrict__ out,           // [H, W, 2] uint4
     int H, int W) {
-    __shared__ float raw[RAW_H * RAW_W];   // later reused for the blur
-    __shared__ float tmp[BL_H * RAW_W];
-    __shared__ int off_a[BITS];
-    __shared__ int off_b[BITS];
+    extern __shared__ float smem[];
+    float* raw = smem;                     // RAW_H x RAW_W, later the blur
+    float* tmp = smem + RAW_H * RAW_W;     // BL_H x RAW_W
 
     const int tx0 = blockIdx.x * TW;
     const int ty0 = blockIdx.y * TH;
     const int tid = threadIdx.x;
 
-    for (int i = tid; i < BITS; i += THREADS) {
-        off_a[i] = pattern[4 * i + 0] * BL_W + pattern[4 * i + 1];
-        off_b[i] = pattern[4 * i + 2] * BL_W + pattern[4 * i + 3];
-    }
     // raw tile, edge-clamped: raw[i][j] = img[clamp(ty0-17+i)][clamp(tx0-17+j)]
     for (int idx = tid; idx < RAW_H * RAW_W; idx += THREADS) {
         const int i = idx / RAW_W;
@@ -94,36 +127,35 @@ __global__ void __launch_bounds__(THREADS) brief_dense_kernel(
     }
     __syncthreads();
 
-    for (int pid = tid; pid < TH * TW; pid += THREADS) {
-        const int py = pid / TW;
-        const int px = pid - py * TW;
-        const int gy = ty0 + py;
-        const int gx = tx0 + px;
-        if (gy >= H || gx >= W) continue;
-        const float* base = blur + (py + REACH) * BL_W + (px + REACH);
-        uint32_t words[8];
+    const int px = tid % TW;
+    const int gx = tx0 + px;
+    for (int pass = 0; pass < PASSES; ++pass) {
+        const int py = (pass * STACKS + tid / TW) * ROWS;
+        uint32_t w[ROWS][8] = {};
+        compare_all(blur + (py + REACH) * BL_W + (px + REACH), w,
+                    std::make_integer_sequence<int, ROWS * BITS>{});
 #pragma unroll
-        for (int wi = 0; wi < 8; ++wi) {
-            uint32_t word = 0;
-#pragma unroll 8
-            for (int bi = 0; bi < 32; ++bi) {
-                const int i = wi * 32 + bi;
-                word |= (uint32_t)(base[off_a[i]] < base[off_b[i]]) << bi;
-            }
-            words[wi] = word;
+        for (int j = 0; j < ROWS; ++j) {
+            const int gy = ty0 + py + j;
+            if (gy >= H || gx >= W) continue;
+            uint4* o = out + ((size_t)gy * W + gx) * 2;
+            o[0] = make_uint4(w[j][0], w[j][1], w[j][2], w[j][3]);
+            o[1] = make_uint4(w[j][4], w[j][5], w[j][6], w[j][7]);
         }
-        uint4* o = out + ((size_t)gy * W + gx) * 2;
-        o[0] = make_uint4(words[0], words[1], words[2], words[3]);
-        o[1] = make_uint4(words[4], words[5], words[6], words[7]);
     }
 }
 
 }  // namespace
 
-extern "C" int svi_brief_dense_fused(const void* img, const void* pattern,
-                                     void* out, int H, int W, void* stream) {
+extern "C" int svi_brief_dense_fused(const void* img, void* out, int H, int W,
+                                     void* stream) {
+    // the tile takes more than the 48 KB of shared memory a block gets
+    // without asking
+    cudaError_t err = cudaFuncSetAttribute(
+        brief_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
     dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-    brief_dense_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)img, (const int*)pattern, (uint4*)out, H, W);
+    brief_dense_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+        (const float*)img, (uint4*)out, H, W);
     return (int)cudaGetLastError();
 }

@@ -62,7 +62,8 @@ def epipolar_band_params(
 ):
     """Fixed-point oriented-band parameters per landmark.
 
-    Returns ``(nxq, nyq, c0q, ru, rv)``, all ``[L] int32``:
+    Returns one ``[5, L]`` int32 tensor, the rows ``(nxq, nyq, c0q, ru,
+    rv)`` (the layout kernel K1 reads; it unpacks like a tuple):
 
     * ``(nxq, nyq)`` — unit line normal x ``BAND_SCALE``;
     * ``c0q`` — signed distance (x ``BAND_SCALE``) of the *rounded*
@@ -134,13 +135,18 @@ def epipolar_band_params(
     half = base_length_px + pw * (EPIPOLAR_MOTION_GAIN_PX * ms_t)
     ru = torch.clamp(torch.round(half[:, 0]), 1, reach_x).to(torch.int32)
     rv = torch.clamp(torch.round(half[:, 1]), 1, reach_y).to(torch.int32)
-    return nxq, nyq, c0q, ru, rv
+    return torch.stack([nxq, nyq, c0q, ru, rv])
 
 
 def fixed_band_params(L: int, reach_x: int, reach_y: int,
                       device: torch.device | str = "cpu"):
     """The pre-epipolar fixed horizontal band (|dy| <= 2, |dx| <= reach_x)
     expressed as band parameters — used when epipolar steering is disabled
-    and as the degenerate-translation fallback geometry."""
-    z = torch.zeros((L,), dtype=torch.int32, device=device)
-    return (z, z + BAND_SCALE, z, z + reach_x, z + reach_y)
+    and as the degenerate-translation fallback geometry. ``[5, L]`` int32,
+    as :func:`epipolar_band_params`."""
+    # built on the device: no host tensor to copy over
+    band = torch.zeros((5, L), dtype=torch.int32, device=device)
+    band[1] = BAND_SCALE
+    band[3] = reach_x
+    band[4] = reach_y
+    return band

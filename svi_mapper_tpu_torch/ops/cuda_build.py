@@ -1,12 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``svi_mapper_tpu_torch/csrc/*.cu`` expose a plain C
-interface. At first use each source is compiled by its own ``nvcc`` process
-(all started together) for ``sm_90a``, the objects are linked into one
-shared library under ``svi_mapper_tpu_torch/_build/`` and the library is
-loaded with ``ctypes``. The library's name carries a hash of the sources, so
-an edited source is rebuilt and a built one is reused. A build failure
-raises; nothing gives way to the plain PyTorch versions.
+The sources under ``svi_mapper_tpu_torch/csrc/*.cu`` (and the ``*.cuh``
+headers they include) expose a plain C interface. At first use each source
+is compiled by its own ``nvcc`` process (all started together) for
+``sm_90a``, the objects are linked into one shared library under
+``svi_mapper_tpu_torch/_build/`` and the library is loaded with ``ctypes``.
+The library's name carries a hash of the sources and headers, so an edited
+one is rebuilt and a built one is reused. A build failure raises; nothing
+gives way to the plain PyTorch versions.
 
 Every exported function takes device pointers and the CUDA stream as
 ``void*``, launches on that stream, allocates nothing, does not synchronise
@@ -38,13 +39,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: name -> argtypes (every function returns int)
 _SIGNATURES = {
-    # field, u, v, x0, y0, nxq, nyq, c0q, ru, rv, desc_last, desc_ref,
-    # out_score, out_x, out_y, out_dist, L, H, W, cut1, cut2, cut_ref, stream
-    "svi_track_scores": [_P] * 16 + [_I] * 6 + [_P],
+    # field, uv, band, desc_last, desc_ref, out, L, H, W, cut1, cut2,
+    # cut_ref, stream
+    "svi_track_scores": [_P] * 6 + [_I] * 6 + [_P],
     # field, v, x0, desc, out, K, De, W, stream
     "svi_stereo_profiles": [_P] * 5 + [_I] * 3 + [_P],
-    # img, pattern, out, H, W, stream
-    "svi_brief_dense_fused": [_P] * 3 + [_I] * 2 + [_P],
+    # img, out, H, W, stream
+    "svi_brief_dense_fused": [_P] * 2 + [_I] * 2 + [_P],
     # T, X, obs, obs_w, S, b_p, Hll_inv, b_l, W, ww_part, pp_part, K, L,
     # fx, fy, cx, cy, bq, kernel_px2, point_damping, lam, stream
     "svi_schur_assemble": [_P] * 11 + [_I] * 2 + [_F] * 8 + [_P],
@@ -78,6 +79,10 @@ def _nvcc() -> str:
 
 def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def _build(lib_path: Path, verbose: bool) -> None:
@@ -122,7 +127,7 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
         if not srcs:
             raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
         digest = hashlib.sha256()
-        for s in srcs:
+        for s in srcs + headers():
             digest.update(s.name.encode())
             digest.update(s.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())

@@ -149,30 +149,130 @@ def smooth_brief_dense_plain(img: torch.Tensor) -> torch.Tensor:
 # ``brief_dense_fused`` (``_brief_dense_kernel``).
 #
 # Bound on the card: the function reads the image once (H*W*4 bytes) and
-# writes the field once (H*W*32 bytes); per pixel it does 256 comparisons of
-# two shared-memory loads plus ~10 blur flops. At 376x1248 that is 16.9 MB
-# against ~0.37 G simple operations: bytes bound it. The plain version
-# instead makes ~512 full-image passes through device memory.
-# Design: one block per 16x64 output tile; the raw tile with its 17 px halo
-# (15 pattern + 2 blur) is staged edge-clamped in shared memory, the
-# separable blur runs there (rows axis first, then columns, taps in the
-# reference's order with separately rounded multiply and add), then each
-# thread compares its pixels' 256 pairs from shared memory and writes 8
-# words with two 16-byte stores. Blurred values outside the image are the
-# blurred values at the clamped coordinate (not the blur of a clamped raw
-# image), so the result equals the plain version bit for bit on the border
-# too.
+# writes the field once (H*W*32 bytes); per pixel it does 256 comparisons
+# plus ~10 blur flops. At 376x1248 that is 16.9 MB against ~0.13 G simple
+# operations: bytes bound it. What limits the kernel is the issue of
+# shared-memory loads (one warp-wide load per clock and SM). Design: one
+# block per BRIEF_TILE_H x BRIEF_TILE_W output tile; the raw tile with its
+# 17 px halo (15 pattern + 2 blur) is staged edge-clamped in shared memory,
+# the separable blur runs there (rows axis first, then columns, taps in the
+# reference's order with separately rounded multiply and add). Each thread
+# then owns BRIEF_ROWS pixels stacked in one column. The pattern is a
+# compile-time table (csrc/brief_pattern.cuh), so every sample read is a
+# shared load at an immediate offset from one base address; a sample that
+# several bits or several of the thread's pixels need is loaded once. The
+# comparisons are made in the order of :func:`brief_schedule`, which keeps
+# few samples waiting for their last use, so that the compiler can hold each
+# in a register. Blurred values outside the image are the blurred values at
+# the clamped coordinate (not the blur of a clamped raw image), so the
+# result equals the plain version bit for bit on the border too.
+
+BRIEF_TILE_H, BRIEF_TILE_W = 32, 64     # output tile of one block
+BRIEF_ROWS = 4                          # pixels a thread owns, in one column
+_REACH = PATCH_HALF - 1                 # 15: the pattern's reach
+
+
+def brief_schedule(rows: int) -> list[int]:
+    """The order in which a thread that owns ``rows`` stacked pixels makes
+    its ``rows * 256`` comparisons, as entries ``bit * rows + row``.
+
+    A sample is a (row, column) offset from the thread's first pixel; it is
+    loaded at its first use and held until its last. Greedy: the next
+    comparison is one that touches a held sample, needs the fewest new
+    loads and then frees the most held samples (lowest entry on a tie).
+    Deterministic; the first pick is entry 0."""
+    pend: dict[tuple, set] = {}
+    ends = []
+    for e in range(rows * DESCRIPTOR_BITS):
+        ay, ax, by, bx = (int(v) for v in PATTERN_OFFSETS[e // rows])
+        j = e % rows
+        a, b = (ay + j, ax), (by + j, bx)
+        ends.append((a, b))
+        pend.setdefault(a, set()).add(e)
+        pend.setdefault(b, set()).add(e)
+    held: set = set()
+    remaining = set(range(len(ends)))
+    order = []
+    while remaining:
+        cand = set().union(*(pend[n] for n in held)) if held else {min(remaining)}
+        best = min(cand, key=lambda e: (
+            sum(n not in held for n in ends[e]),
+            -sum(len(pend[n]) == 1 for n in set(ends[e])), e))
+        order.append(best)
+        remaining.discard(best)
+        for n in ends[best]:
+            pend[n].discard(best)
+            if pend[n]:
+                held.add(n)
+            else:
+                held.discard(n)
+    return order
+
+
+def brief_schedule_stats(rows: int) -> dict:
+    """Shared loads per pixel of the comparison stage (distinct samples of a
+    thread over its ``rows`` pixels), the most samples held at once along
+    :func:`brief_schedule`, and the blur stage's loads per pixel at the
+    tile size."""
+    first, last = {}, {}
+    for k, e in enumerate(brief_schedule(rows)):
+        ay, ax, by, bx = (int(v) for v in PATTERN_OFFSETS[e // rows])
+        j = e % rows
+        for n in ((ay + j, ax), (by + j, bx)):
+            first.setdefault(n, k)
+            last[n] = k
+    live = np.zeros(rows * DESCRIPTOR_BITS + 1, np.int64)
+    for n, k in first.items():
+        live[k] += 1
+        live[last[n] + 1] -= 1
+    bl_h, bl_w = BRIEF_TILE_H + 2 * _REACH, BRIEF_TILE_W + 2 * _REACH
+    raw_w = bl_w + 4
+    blur_loads = (bl_h * raw_w + bl_h * bl_w) * BLUR_SIZE
+    return {"rows": rows, "compare_loads_per_pixel": len(first) / rows,
+            "samples_held_max": int(np.cumsum(live).max()),
+            "blur_loads_per_pixel": blur_loads / (BRIEF_TILE_H * BRIEF_TILE_W)}
+
+
+def brief_pattern_header(rows: int = BRIEF_ROWS) -> str:
+    """The text of ``csrc/brief_pattern.cuh``: tile size, ``rows``, the
+    pattern (seed 17, as ``PATTERN_OFFSETS``) and the comparison order."""
+    order = brief_schedule(rows)
+    lines = [
+        "// K3's tile, sample pattern and comparison order, generated from",
+        "// svi_mapper_tpu_torch.ops.descriptors (the pattern of seed 17):",
+        "//     python3 -m svi_mapper_tpu_torch.ops.descriptors \\",
+        "//         > svi_mapper_tpu_torch/csrc/brief_pattern.cuh",
+        "// Do not edit by hand; tests/test_torch_brief_dense.py holds it to",
+        "// the generator and to the JAX package's pattern.",
+        "#pragma once",
+        "",
+        "namespace brief {",
+        "",
+        f"constexpr int TILE_H = {BRIEF_TILE_H};   // output tile of one block",
+        f"constexpr int TILE_W = {BRIEF_TILE_W};",
+        f"constexpr int ROWS = {rows};      // pixels a thread owns, stacked in one column",
+        "",
+        "// (ay, ax, by, bx) of bit i: bit i of pixel (y, x) is",
+        "// blur[y + ay][x + ax] < blur[y + by][x + bx]",
+        f"constexpr signed char PATTERN[{DESCRIPTOR_BITS}][4] = {{",
+    ]
+    for i, (ay, ax, by, bx) in enumerate(PATTERN_OFFSETS):
+        lines.append(f"    {{{int(ay):3d}, {int(ax):3d}, {int(by):3d}, {int(bx):3d}}},  // {i}")
+    lines += ["};", "",
+              "// the ROWS * 256 comparisons in the order the kernel makes them:",
+              "// entry bit * ROWS + row",
+              f"constexpr short ORDER[{len(order)}] = {{"]
+    for k in range(0, len(order), 12):
+        lines.append("    " + ", ".join(f"{e:4d}" for e in order[k:k + 12]) + ",")
+    lines += ["};", "",
+              "__host__ __device__ constexpr int pattern(int bit, int k) { return PATTERN[bit][k]; }",
+              "__host__ __device__ constexpr int order(int k) { return ORDER[k]; }",
+              "",
+              "}  // namespace brief", ""]
+    return "\n".join(lines)
+
 
 brief_dense_fused_launches = 0
-_pattern_cache: dict = {}
-
-
-def _pattern_on(device: torch.device) -> torch.Tensor:
-    key = (device.type, device.index)
-    if key not in _pattern_cache:
-        _pattern_cache[key] = torch.from_numpy(
-            np.ascontiguousarray(PATTERN_OFFSETS)).to(device)
-    return _pattern_cache[key]
 
 
 def brief_dense_fused(img: torch.Tensor) -> torch.Tensor:
@@ -188,15 +288,15 @@ def brief_dense_fused(img: torch.Tensor) -> torch.Tensor:
         raise ValueError("brief_dense_fused takes a [H, W] float32 image")
     if not img.is_cuda:
         return smooth_brief_dense_plain(img)
+    if not img.is_contiguous():
+        raise ValueError("brief_dense_fused takes a contiguous image")
     lib = cuda_build.load_library()
-    img = img.contiguous()
     h, w = img.shape
     out = torch.empty((h, w, DESCRIPTOR_WORDS), dtype=torch.int32,
                       device=img.device)
-    pattern = _pattern_on(img.device)
     with torch.cuda.device(img.device):
         err = lib.svi_brief_dense_fused(
-            img.data_ptr(), pattern.data_ptr(), out.data_ptr(), h, w,
+            img.data_ptr(), out.data_ptr(), h, w,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, "svi_brief_dense_fused")
     brief_dense_fused_launches += 1
@@ -209,10 +309,25 @@ def smooth_brief_dense(img: torch.Tensor) -> torch.Tensor:
     return brief_dense_fused(img)
 
 
+def round_pixel(uv: torch.Tensor, h: int, w: int, dtype=torch.int32):
+    """Nearest pixel ``(x, y)`` of ``uv [..., 2]`` in an ``h x w`` image:
+    rounded half to even, then clamped in float before the cast. For every
+    input without NaN (map those first) that is the JAX package's round ->
+    saturating cast -> clip, on the CPU and on the card alike;
+    ``csrc/track_scores.cu`` restates it."""
+    x = torch.clamp(torch.round(uv[..., 0]), 0, w - 1).to(dtype)
+    y = torch.clamp(torch.round(uv[..., 1]), 0, h - 1).to(dtype)
+    return x, y
+
+
 def brief_at(dense: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Gather packed descriptors from a dense field at (possibly fractional)
-    pixel locations (nearest pixel, round-half-even, clamped to the image)."""
+    pixel locations (nearest pixel, round-half-even, clamped to the image;
+    a NaN coordinate reads index 0)."""
     h, w = dense.shape[:2]
-    x = torch.clamp(torch.round(uv[..., 0]).to(torch.int64), 0, w - 1)
-    y = torch.clamp(torch.round(uv[..., 1]).to(torch.int64), 0, h - 1)
+    x, y = round_pixel(torch.nan_to_num(uv, nan=0.0), h, w, torch.int64)
     return dense[y, x]
+
+
+if __name__ == "__main__":
+    print(brief_pattern_header(), end="")

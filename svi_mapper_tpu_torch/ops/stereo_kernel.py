@@ -33,16 +33,20 @@ from __future__ import annotations
 import torch
 
 from svi_mapper_tpu_torch.ops import cuda_build
-from svi_mapper_tpu_torch.ops.descriptors import DESCRIPTOR_WORDS, hamming_words
+from svi_mapper_tpu_torch.ops.descriptors import (
+    DESCRIPTOR_WORDS,
+    hamming_words,
+    round_pixel,
+)
 
 
 def span_origin(uv_left: torch.Tensor, h: int, w: int, De: int):
     """Rounded keypoint pixel and clamped span origin, all ``[K]`` int32.
     Non-finite coordinates read pixel (0, 0): every candidate of such a row
-    is masked by ``match_stereo`` afterwards."""
-    uvs = torch.nan_to_num(uv_left, nan=0.0, posinf=0.0, neginf=0.0)
-    u_r = torch.clamp(torch.round(uvs[:, 0]).to(torch.int32), 0, w - 1)
-    v_r = torch.clamp(torch.round(uvs[:, 1]).to(torch.int32), 0, h - 1)
+    is masked by ``match_stereo`` afterwards. Rounded by
+    :func:`~svi_mapper_tpu_torch.ops.descriptors.round_pixel`."""
+    u_r, v_r = round_pixel(
+        torch.nan_to_num(uv_left, nan=0.0, posinf=0.0, neginf=0.0), h, w)
     x0 = torch.clamp(u_r - (De - 1), 0, w - De)
     return u_r, v_r, x0
 
