@@ -13,10 +13,13 @@ one CUDA card, ``nvcc`` and nothing from the network. It
    times kernel and plain version with CUDA events: the front-end kernels
    at the shapes of the main path (376x1248 field, 1024 landmarks /
    keypoints, 128 disparities) and at two ragged small shapes, exact
-   equality; the two Schur-assembly kernels at (K, L) = (8, 640),
-   (5, 1000), (32, 4096), (64, 4096), (128, 4096) and at the windows of the
-   whole system's loop, (8, 1024) and (64, 1024), within the stated
-   relative tolerances, and both against the plain version in float64; the
+   equality; the Schur assembly through both entry points (K4, K5; three
+   kernels) at (K, L) = (8, 640), (5, 1000), (1, 640), (31, 4097),
+   (32, 4097), (32, 4096), (64, 4096), (128, 4096), at the windows of the
+   whole system's loop, (8, 1024) and (64, 1024), and at a 64 x 1024 window
+   padded as the loop pads its windows, within the stated relative
+   tolerances, no further from float64 than the plain version, the same
+   bits twice, each kernel's registers and spills (none allowed); the
    Hamming-matrix kernel at 256 x 4096, ragged and batched shapes, exact
    equality; every kernel's device time from a ``torch.profiler`` trace;
 4. compares the port on the card with the port on the CPU (plain versions)
@@ -877,7 +880,53 @@ def sass_count(kernel: str, opcode: str) -> int | None:
     return count
 
 
-def check_schur_kernel(device, name: str, K: int, L: int, timed: bool) -> dict:
+def padded_ba_problem(K0: int, K: int, L0: int, L: int, seed: int):
+    """``ba_problem(K0, L0, hard=True)`` padded as ``models.slam`` pads a BA
+    window: keyframes past K0 with identity poses and no observations (the
+    bucket to a power of two), landmarks past L0 at the origin and never
+    observed (the bucket to a power of two of at least 64)."""
+    import numpy as np
+
+    p = ba_problem(K0, L0, seed=seed, noise=1.5, point_noise=0.1, hard=True)
+    T = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    T[:K0] = p["T"]
+    X0 = np.zeros((L, 3), np.float32)
+    X0[:L0] = p["X0"]
+    obs = np.zeros((K, L, 4), np.float32)
+    obs[:K0, :L0] = p["obs"]
+    mask = np.zeros((K, L), bool)
+    mask[:K0, :L0] = p["mask"]
+    return dict(p, T=T, X0=X0, obs=obs, mask=mask)
+
+
+# the design's three kernels, as the trace names them
+SCHUR_KERNELS = ("schur_assembly_kernel", "schur_product_kernel", "schur_reduce_kernel")
+
+
+def schur_counts(mask, K: int, L: int) -> dict:
+    """Bytes and operations the function needs on this window's data: each
+    input read once and each output written once; the assembly's
+    operations per observation, and C = W Hll^-1 (90 operations per
+    observed keyframe-landmark pair), the rhs column (36) and the product
+    (216 per 6x6 block and landmark) only where an observation is, the
+    product over the upper block triangle: n (n + 1) / 2 blocks for a
+    landmark that n keyframes observe."""
+    import numpy as np
+
+    n_l = mask.sum(0).astype(np.int64)
+    n_obs = int(n_l.sum())
+    pairs = int((n_l * (n_l + 1) // 2).sum())
+    moved_in = 4 * (16 * K + 3 * L + 5 * K * L)
+    moved_out = 4 * (36 * K * K + 6 * K + 12 * L + 18 * K * L)
+    return dict(bytes=moved_in + moved_out,
+                flops=n_obs * (FLOPS_PER_OBSERVATION + 90 + 36) + 216 * pairs,
+                product_flops_upper=216 * pairs,
+                product_flops_dense_upper=216 * (K * (K + 1) // 2) * L,
+                observations=n_obs)
+
+
+def check_schur_kernel(device, name: str, K: int, L: int, timed: bool,
+                       padded: bool = False) -> dict:
     import torch
 
     from svi_mapper_tpu_torch.ops import ba_kernel
@@ -887,11 +936,18 @@ def check_schur_kernel(device, name: str, K: int, L: int, timed: bool) -> dict:
         "schur_assemble_tiled": (ba_kernel.schur_assemble_tiled,
                                  ba_kernel.schur_assemble_tiled_plain),
     }[name]
-    p = ba_problem(K, L, seed=23 + K, noise=1.5, point_noise=0.1, hard=True)
+    if padded:
+        p = padded_ba_problem(K // 2 + 3, K, L * 3 // 4 - 5, L, seed=29 + K)
+    else:
+        p = ba_problem(K, L, seed=23 + K, noise=1.5, point_noise=0.1, hard=True)
     to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     args = (to(p["T"]), to(p["X0"]), to(p["obs"]), to(p["mask"].astype("float32")))
     kw = dict(zip(("fx", "fy", "cx", "cy", "bq"), p["intr"]))
-    lam = 1e-3
+    # with one keyframe every landmark is observed once, and S is H_pp
+    # cancelled by its own landmarks' terms down to the damping: at 1e-3 the
+    # plain float32 version keeps no digit of it (7.8 x its size from
+    # float64); at 10 it keeps five
+    lam = 10.0 if K == 1 else 1e-3
     got = fn(*args, lam, **kw)
     torch.cuda.synchronize()
     again = fn(*args, lam, **kw)
@@ -903,7 +959,7 @@ def check_schur_kernel(device, name: str, K: int, L: int, timed: bool) -> dict:
             f"{name}: output shapes")
     err = schur_errors(got, want32)
     bad = {nm: float(f"{e:.3e}") for nm, e in err.items() if not e < SCHUR_TOL[nm]}
-    require(not bad, f"{name} K={K} L={L}: off by {bad}")
+    require(not bad, f"{name} K={K} L={L} padded={padded}: off by {bad}")
     # the inputs reach every branch
     pc_z = (torch.einsum("kij,lj->kli", args[0][:, :3, :3], args[1])
             + args[0][:, None, :3, 3])[..., 2]
@@ -916,73 +972,84 @@ def check_schur_kernel(device, name: str, K: int, L: int, timed: bool) -> dict:
     unseen_inv = got[2][~seen.any(0)].double() * (lam + 1e-6)
     require(float((unseen_inv - torch.eye(3, device=device, dtype=torch.float64))
                   .abs().max()) < 1e-5, "Hll_inv of an unobserved landmark")
+    if padded:
+        # the padded keyframes' rows and columns, the padded landmarks'
+        # columns: exact zeros
+        k0 = int(seen.any(1).nonzero().max()) + 1
+        l0 = int(seen.any(0).nonzero().max()) + 1
+        require(torch.count_nonzero(got[0][k0:]) == 0
+                and torch.count_nonzero(got[0][:, :, k0:]) == 0
+                and torch.count_nonzero(got[4][:, 6 * k0:]) == 0
+                and torch.count_nonzero(got[4][:, :, l0:]) == 0,
+                f"{name}: padded rows or columns of S / W not zero")
     out = dict(
-        name=name, K=K, L=L, rel_err_vs_plain=err,
+        name=name, K=K, L=L, padded=padded, rel_err_vs_plain=err,
         max_abs_err=float(torch.max(torch.abs(got[0] - want32[0]))),
         rel_err_vs_float64=dict(kernel=schur_errors(got, want64),
                                 plain=schur_errors(want32, want64)),
-        # per-block partials are added in a fixed order: no run-to-run change
+        # partials are added in a fixed order: no run-to-run change
         same_bits_twice=all(torch.equal(a, b) for a, b in zip(got, again)))
     require(out["same_bits_twice"], f"{name}: two runs differ")
+    # the kernel is no further from float64 than the plain float32 version:
+    # S, rhs and W within twice the plain version's error, or within 1e-5
+    # (a twentieth of SCHUR_TOL) where both are at float32's rounding level
+    # and the order of the sums decides
+    worse = {nm: (out["rel_err_vs_float64"]["kernel"][nm],
+                  out["rel_err_vs_float64"]["plain"][nm]) for nm in ("S", "rhs", "W")
+             if out["rel_err_vs_float64"]["kernel"][nm]
+             > max(2 * out["rel_err_vs_float64"]["plain"][nm], 1e-5)}
+    out["no_worse_than_plain_vs_float64"] = not worse
+    require(not worse, f"{name} K={K} L={L}: further from float64 than the plain "
+            f"version (kernel, plain): {worse}")
     if timed:
+        # the whole function through the wrapper; the launch alone
+        # (allocations + the three kernels); the device time of each kernel
+        # and their sum from a trace
         out["ms"] = time_ms(lambda: fn(*args, lam, **kw), 50)
-        # the launch alone (allocations + the kernel), without the PyTorch
-        # work the wrapper does behind it
-        cam_scalars = (*p["intr"], 10.0)
-        if name == "schur_assemble":
-            launch = lambda: ba_kernel.launch_schur_assemble(  # noqa: E731
-                *args, lam, cam_scalars, 1e-6)
-            traced = ("schur_assemble_kernel", "schur_reduce_kernel")
-        else:
-            launch = lambda: ba_kernel.launch_schur_assemble_tiled(  # noqa: E731
-                *args, cam_scalars)
-            traced = ("schur_tile_kernel", "tile_reduce_kernel")
+        launch = lambda: ba_kernel.launch_schur_system(  # noqa: E731
+            *args, lam, (*p["intr"], 10.0), 1e-6, tiled=name == "schur_assemble_tiled")
         out["launch_only_ms"] = time_ms(launch, 50)
-        # the assembly kernel and the kernel that adds its partials, as traced
-        out["device_ms"] = traced_device_ms(launch, traced)
+        by_kernel = traced_device_ms_by_kernel(launch, SCHUR_KERNELS)
+        out["device_ms_by_kernel"] = by_kernel
+        out["device_ms"] = (None if None in by_kernel.values()
+                            else sum(by_kernel.values()))
         out["plain_ms"] = time_ms(lambda: plain(*args, lam, **kw), 3, 1)
-        obs_flops = K * L * FLOPS_PER_OBSERVATION
-        moved_in = 4 * (16 * K + 3 * L + 5 * K * L)
-        w_planes = 4 * 18 * K * L
-        if name == "schur_assemble":
-            # out: S, rhs, Hll_inv, b_l, W; the C planes and the product run
-            # in the kernel. W Hll^-1 W^T is symmetric: what the function
-            # needs is its upper triangle of 6x6 blocks, K (K + 1) / 2 of
-            # them. The kernel forms all K^2 (flops_executed).
-            moved = moved_in + 4 * (36 * K * K + 6 * K + 12 * L) + w_planes
-            c_planes = 15 * 6 * K * L
-            flops = obs_flops + c_planes + 2 * 36 * (K * (K + 1) // 2) * 3 * L
-            out["flops_executed"] = obs_flops + c_planes + 2 * (6 * K) ** 2 * 3 * L
-        else:
-            # the kernel's own outputs: per-tile partial H_ll/b_l, H_pp, b_p, W
-            moved = moved_in + 4 * (9 * L * (K // 32) + 42 * K) + w_planes
-            flops = obs_flops
-            C = ba_kernel._c_planes(got[4], got[2])
-            H_pp = torch.zeros((K, 6, 6), device=device)
-            out["product_matmul_ms"] = time_ms(
-                lambda: ba_kernel._schur_from_planes(H_pp, C, got[4]), 20)
-            out["product_flops"] = 2 * (6 * K) ** 2 * 3 * L
-        out["bytes"], out["flops"] = moved, flops
-        out["bound_ms"], out["bound_by"] = bound(moved, flops)
+        # torch.matmul of the same planes: the dense [6K, 3L] x [3L, 6K]
+        # product the plain version forms, its operands laid out beforehand
+        A = ba_kernel._c_planes(got[4], got[2]).permute(1, 0, 2).reshape(6 * K, -1)
+        B = got[4].permute(1, 0, 2).reshape(6 * K, -1)
+        out["product_matmul_ms"] = time_ms(lambda: torch.matmul(A, B.T), 20)
+        out["product_matmul_flops"] = 2 * (6 * K) ** 2 * 3 * L
+        counts = schur_counts(p["mask"], K, L)
+        out.update(counts)
+        out["bound_ms"], out["bound_by"] = bound(counts["bytes"], counts["flops"])
     return out
 
 
 # the windows SLAMSystem assembles on the 208-frame loop: the 8-keyframe local
-# BA (the 3-strip instance of K4) and the incremental BA after a closure,
-# bucketed to 64 keyframes (K5), both over the loop's 1024 landmarks
+# BA (K4) and the incremental BA after a closure, bucketed to 64 keyframes
+# (K5), both over the loop's 1024 landmarks
 LOOP_BA_SHAPES = [("schur_assemble", 8, N_LANDMARKS),
                   ("schur_assemble_tiled", 64, N_LANDMARKS)]
 
 
-def check_backend_kernels(device) -> list[dict]:
-    """K4 and K5 at two ragged shapes, at the widest windows of the
-    map-optimisation path and at the windows of the whole system's loop."""
+def check_backend_kernels(device, timed: bool = True) -> list[dict]:
+    """K4 and K5 at ragged shapes (one keyframe, 31 keyframes, 4097
+    landmarks), at the widest windows of the map-optimisation path, at the
+    windows of the whole system's loop and at a 64 x 1024 window padded as
+    the loop pads its windows (``timed=False``: every shape checked, none
+    timed)."""
     shapes = [("schur_assemble", 8, 640, False), ("schur_assemble", 5, 1000, False),
+              ("schur_assemble", 1, 640, False), ("schur_assemble", 31, 4097, False),
+              ("schur_assemble_tiled", 32, 4097, False),
               ("schur_assemble", 32, BA_LANDMARKS, True),
               ("schur_assemble_tiled", 64, BA_LANDMARKS, True),
               ("schur_assemble_tiled", 128, BA_LANDMARKS, True),
               *[(*shape, True) for shape in LOOP_BA_SHAPES]]
-    return [check_schur_kernel(device, *s) for s in shapes]
+    rows = [check_schur_kernel(device, *s[:3], s[3] and timed) for s in shapes]
+    rows.append(check_schur_kernel(device, "schur_assemble_tiled", 64, N_LANDMARKS,
+                                   timed, padded=True))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1230,8 +1297,7 @@ def profile_bundle_adjust(device, K: int, unprofiled_ms_per_iteration: float,
         "device_kernels_per_iteration": sum(r[2] for r in rows) / n,
         "port_kernels_device_ms": {
             name: next((r[1] / r[2] for r in rows if name in r[0]), None)
-            for name in ("schur_assemble_kernel", "schur_reduce_kernel",
-                         "schur_tile_kernel", "tile_reduce_kernel")},
+            for name in SCHUR_KERNELS},
         "top_kernels": [{"name": r[0][:80], "ms_per_iteration": r[1] / n,
                          "calls_per_iteration": r[2] / n} for r in rows[:12]],
     }
@@ -1269,23 +1335,32 @@ def check_backend_against_cpu(device) -> dict:
     p = ba_problem(8, 256, seed=5)
     out = {}
     results = {}
-    for dev in (device, "cpu"):
+    for dev, dtype in ((device, torch.float32), ("cpu", torch.float32),
+                       ("cpu", torch.float64)):
         cam = default_camera(BA_WIDTH, BA_HEIGHT, device=dev)
         t = convert.ba_problem_from_numpy(
             dict(T_wc=p["T"], points_w=p["X0"], obs_uv=p["obs"], obs_mask=p["mask"],
                  fix_mask=p["fix"]), device=dev)
-        results[str(dev)] = ba.bundle_adjust(
-            t["T_wc"], t["points_w"], t["obs_uv"], t["obs_mask"], cam, t["fix_mask"],
-            max_iterations=6, min_rel_improvement=0.0, use_schur_kernel=True,
-            device=dev)
-    a, b = results[str(device)], results["cpu"]
+        results[(str(dev), dtype)] = ba.bundle_adjust(
+            t["T_wc"].to(dtype), t["points_w"].to(dtype), t["obs_uv"].to(dtype),
+            t["obs_mask"], cam, t["fix_mask"], max_iterations=6,
+            min_rel_improvement=0.0, use_schur_kernel=True, device=dev)
+    a, b = results[(str(device), torch.float32)], results[("cpu", torch.float32)]
+    ref = results[("cpu", torch.float64)]
     chi_rel = abs(float(a.chi2_final) - float(b.chi2_final)) / float(b.chi2_final)
     dT = float((a.T_wc.cpu() - b.T_wc).abs().max())
     dX = float((a.points_w.cpu() - b.points_w).abs().max())
-    require(chi_rel < 1e-3 and dT < 1e-4 and dX < 1e-3,
-            f"BA card vs CPU: chi2 {chi_rel}, poses {dT}, points {dX}")
+    # a landmark 52 m deep is fixed to millimetres in depth: there float32
+    # rounding alone moves it by more than 1e-3 m (the CPU's float32 run is
+    # 5.6 mm from the float64 one), so the card's points are held within
+    # 1e-3 m of the CPU's float32 run or of its float64 run
+    dX64 = {"card": float((a.points_w.cpu().double() - ref.points_w).abs().max()),
+            "cpu": float((b.points_w.double() - ref.points_w).abs().max())}
+    require(chi_rel < 1e-3 and dT < 1e-4 and (dX < 1e-3 or dX64["card"] < 1e-3),
+            f"BA card vs CPU: chi2 {chi_rel}, poses {dT}, points {dX}; points "
+            f"against float64 {dX64}")
     out["bundle_adjust"] = {"chi2_final_rel_diff": chi_rel, "max_pose_diff": dT,
-                            "max_point_diff_m": dX}
+                            "max_point_diff_m": dX, "max_point_diff_vs_float64_m": dX64}
 
     T_true, T_est, edges_np, fix = ring_graph(60, seed=9, overlap=10)
     poses = {}
@@ -1341,6 +1416,14 @@ def traced_device_ms(fn, kernels: tuple, n: int = 50) -> float | None:
     """Device time per call of ``fn``, summed over the kernels whose names
     contain one of ``kernels``, from a ``torch.profiler`` trace of ``n``
     calls (None when the trace shows no device time for one of them)."""
+    per_kernel = traced_device_ms_by_kernel(fn, kernels, n)
+    return None if None in per_kernel.values() else sum(per_kernel.values())
+
+
+def traced_device_ms_by_kernel(fn, kernels: tuple, n: int = 50) -> dict:
+    """Device time per call of ``fn`` of each kernel whose name contains one
+    of ``kernels``, from a ``torch.profiler`` trace of ``n`` calls (None
+    for a kernel the trace does not show)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1350,11 +1433,13 @@ def traced_device_ms(fn, kernels: tuple, n: int = 50) -> float | None:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    rows = prof.key_averages()
-    per_kernel = [next((e.device_time_total / 1e3 / n for e in rows
-                        if k in e.key and e.device_time_total > 0), None)
-                  for k in kernels]
-    return None if None in per_kernel else sum(per_kernel)
+    rows = [e for e in prof.key_averages()
+            if e.device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for k in kernels:
+        hit = [e.device_time_total for e in rows if k in e.key]
+        out[k] = sum(hit) / 1e3 / n if hit else None
+    return out
 
 
 def check_closure_kernel(device) -> list[dict]:
@@ -1602,9 +1687,16 @@ LOOP_JAX_RECORD = {"keyframes": 49, "closures_accepted": 2, "closures_deduped": 
 LOOP_SYNC_CHUNKS = 2         # chunks of the run whose host reads are counted
 
 
-def run_slam_loop(device) -> tuple[dict, dict]:
+def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
     """The whole system on the loop, once. The report's ``ba_windows`` names
-    the kernel, K and L of every BA window the run assembled."""
+    the kernel, K and L of every BA window the run assembled. With
+    ``schur_kernels=False`` every BA window takes the materialised route
+    (``solvers.ba``, ``use_schur_kernel=False``) instead of K4 / K5: a
+    second witness of the loop's accuracy (``mutation_check.py
+    --loop-routes``), not part of the smoke run."""
+    import contextlib
+    from unittest import mock
+
     import numpy as np
     import torch
 
@@ -1650,7 +1742,9 @@ def run_slam_loop(device) -> tuple[dict, dict]:
     # counts the host reads there (a warning each, recorded, not printed)
     n_sync = LOOP_SYNC_CHUNKS * LOOP_CHUNK
     outs = []
-    with TrackInputs(sample=LOOP_FRAMES // 2) as k1_inputs:
+    route = (contextlib.nullcontext() if schur_kernels else
+             mock.patch.object(ba, "schur_kernel_auto", lambda *a, **k: False))
+    with route, TrackInputs(sample=LOOP_FRAMES // 2) as k1_inputs:
         syncs = count_host_syncs(lambda: outs.extend(slam.process_many(
             imgs_l[:n_sync], imgs_r[:n_sync], chunk=LOOP_CHUNK)))
         outs.extend(slam.process_many(imgs_l[n_sync:], imgs_r[n_sync:], chunk=LOOP_CHUNK))
@@ -1689,7 +1783,8 @@ def run_slam_loop(device) -> tuple[dict, dict]:
     # required (the loop's drift is largest on its far side and the closure
     # acts where the loop ends, so this figure barely moves)
     anchored_rec, anchored_opt = ate_rmse(raw, seq.poses_wc), ate_rmse(opt, seq.poses_wc)
-    on_path = FRONTEND_KERNELS + ("schur_assemble", CLOSURE_KERNEL)
+    on_path = (FRONTEND_KERNELS + (("schur_assemble",) if schur_kernels else ())
+               + (CLOSURE_KERNEL,))
     k5_ran = counts["schur_assemble_tiled"] > 0
 
     # are the closed loops true loops: the measured transform of each
@@ -1715,7 +1810,7 @@ def run_slam_loop(device) -> tuple[dict, dict]:
         "jax_package_record": LOOP_JAX_RECORD,
         "ba_windows": [{"kernel": name, "K": K_w, "L": L_w, **row}
                        for (name, K_w, L_w), row in sorted(by_shape.items())],
-        "k5_on_this_path": k5_ran,
+        "schur_kernels": schur_kernels, "k5_on_this_path": k5_ran,
         "ate_recorded_m": ate_rec, "ate_optimised_m": ate_opt,
         "ate_bound_m": LOOP_ATE_BOUND_M,
         "ate_anchored_recorded_m": anchored_rec, "ate_anchored_optimised_m": anchored_opt,
@@ -1754,7 +1849,8 @@ def run_slam_loop(device) -> tuple[dict, dict]:
     require(max(closure_err) < LOOP_CLOSURE_ERR_M,
             f"accepted closures off by {closure_err} m from the ground truth")
     require(all(counts[k] > 0 for k in on_path), f"kernel not launched: {counts}")
-    require(k5_ran == any(name == "schur_assemble_tiled" for name, _, _ in by_shape),
+    require(k5_ran == (schur_kernels and any(name == "schur_assemble_tiled"
+                                             for name, _, _ in by_shape)),
             f"K5 launches {counts['schur_assemble_tiled']} against windows {windows}")
     require(slam.db.n == n_kf and slam.db.desc.is_cuda and slam.db.prob.is_cuda,
             "closure database left the card")
@@ -1811,8 +1907,12 @@ def main() -> int:
           "design": {k["name"]: k["design"] for k in full if "design" in k}})
 
     backend = check_backend_kernels(device)
+    schur_build = ptxas_report("schur_assemble.cu", "kernel")
     emit({"phase": "kernels_backend", "tolerance": SCHUR_TOL, "shapes": backend,
-          "build": ptxas_report("schur_assemble.cu", "kernel")})
+          "build": schur_build})
+    require(not schur_build or all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                                   for r in schur_build),
+            f"a kernel of schur_assemble.cu spills: {schur_build}")
 
     closure_rows = check_closure_kernel(device)
     emit({"phase": "kernels_closure", "shapes": closure_rows,
@@ -1836,7 +1936,8 @@ def main() -> int:
     # every BA window of the loop has a shape at which K4 / K5 were held
     # against their plain versions: the two expected ones in the kernel
     # phase above, any other one now
-    at_shape = {(k["name"], k["K"], k["L"]): k for k in backend if "ms" in k}
+    at_shape = {(k["name"], k["K"], k["L"]): k for k in backend
+                if "ms" in k and not k["padded"]}
     late = [(w["kernel"], w["K"], w["L"]) for w in loop["ba_windows"]
             if (w["kernel"], w["K"], w["L"]) not in at_shape]
     for shape in late:
@@ -1854,11 +1955,12 @@ def main() -> int:
     # the kernels line: each kernel at the largest shape its main path gives
     # it; K4 and K5 also at each window shape of the loop (the front-end
     # kernels and K6 have the same shapes there)
-    at_width = {"schur_assemble": backend[2], "schur_assemble_tiled": backend[4],
+    at_width = {"schur_assemble": at_shape[("schur_assemble", 32, BA_LANDMARKS)],
+                "schur_assemble_tiled": at_shape[("schur_assemble_tiled", 128, BA_LANDMARKS)],
                 CLOSURE_KERNEL: closure_rows[0]}
-    timed_keys = ("ms", "launch_only_ms", "device_ms", "plain_ms", "bound_ms",
-                  "bound_by", "max_abs_err", "rel_err_vs_plain", "bytes", "flops",
-                  "flops_executed", "product_matmul_ms")
+    timed_keys = ("ms", "launch_only_ms", "device_ms", "device_ms_by_kernel", "plain_ms",
+                  "bound_ms", "bound_by", "max_abs_err", "rel_err_vs_plain", "bytes",
+                  "flops", "product_flops_upper", "product_matmul_ms")
     kernels = []
     for k in full + [at_width[n] for n in BACKEND_KERNELS + (CLOSURE_KERNEL,)]:
         row = {
@@ -1872,7 +1974,8 @@ def main() -> int:
             "launches_closure_query": query_counts[k["name"]],
         }
         for extra in ("launch_only_ms", "rel_err_vs_plain", "K", "L", "flops",
-                      "flops_executed", "product_matmul_ms", "N", "M",
+                      "product_flops_upper",
+                      "device_ms_by_kernel", "product_matmul_ms", "N", "M",
                       "matmul_identity_ms", "bytes", "operations", "device_ms",
                       "pixels_scored_per_landmark"):
             if extra in k:

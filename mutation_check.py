@@ -1,11 +1,13 @@
-"""Does ``chip_smoke.py`` catch a wrong kernel? What do the Schur kernel's
-small-window instances buy? And how do K1 and K3 compare with the parent
-commit's?
+"""Does ``chip_smoke.py`` catch a wrong kernel? What does the Schur product
+kernel's 8-keyframe instance buy, and where does its time go? And how do
+K1, K3, K4 and K5 compare with the parent commit's?
 
     python3 mutation_check.py [fault ...]
     python3 mutation_check.py --instances
     python3 mutation_check.py --versus-parent
     python3 mutation_check.py --natural-order
+    python3 mutation_check.py --product-phases
+    python3 mutation_check.py --loop-routes
 
 A developer's check, run from the repository root; needs one CUDA card and
 ``nvcc``. For each named fault the package and ``chip_smoke.py`` are copied to
@@ -27,10 +29,16 @@ the result and must be caught:
 
 * ``>=`` for ``>`` at the robust kernel: at ``err2 == kernel_px2`` both
   branches give the weight 1 (beside it: the robust branch never taken);
-* a keyframe tile that starts one tile further on (cyclically): a block
+* an assembly split that starts one split further on (cyclically): a block
   labels everything it reads and writes with the same global keyframe index,
-  so the blocks merely swap their work (beside it: the tile offset dropped
-  where the pose is read);
+  so the blocks merely swap their work and the splits' partial H_ll are
+  added in another order, within the tolerance (beside it: the split offset
+  dropped where the pose is read);
+* never skipping a landmark tile in the Schur product: a tile whose flags
+  are all 0 for a keyframe group holds W entries that are exactly +-0 there
+  (the weight is 0, so every Jacobian row is), and adding +-0 to a sum
+  that starts at +0 changes no bit (beside it: a flag that skips observed
+  tiles);
 * in the Hamming kernel, b-rows past the ragged edge staged as ones instead
   of zeros: their columns are never written (beside it: the edge test off
   by one where the column is written);
@@ -62,25 +70,42 @@ thread's stacked pixels reading its neighbour's row. The K1 faults
 as ``|dx| <= 7``, the fold dropped or at position 1, round half up in the
 kernel's rounding, the float clamp removed.
 
-The two ``hll_inv_written_*`` faults change only the ``Hll_inv`` the kernel
-writes out (and through it ``rhs``), not the inverse it uses for ``S``. The
-message names every output that failed: the 3 % one is small enough to pass
-``rhs`` and shows what the per-landmark comparison of ``Hll_inv`` adds.
+The Schur faults: the in-front test dropped, the robust branch never
+taken, two W rows swapped, the C operand's rows reversed, the split offset
+dropped for the poses, a chunk's partial left out or added twice, a
+landmark tile's H_pp / b_p left out of a chunk, the lower triangle not
+mirrored (zeros) or its blocks not transposed, the rhs
+column dropped or shifted by one landmark, the last landmark chunk or the
+ragged landmarks past the last full tile dropped, a flag that skips
+observed tiles, a cofactor's sign. The two ``hll_inv_written_*`` faults
+change only the ``Hll_inv`` the designated block writes out, not the
+inverse the product uses for ``S`` and ``rhs``: the 3 % one shows what the
+per-landmark comparison of ``Hll_inv`` adds.
 
 ``--instances`` times K4 (the launch alone over 50 calls, and the traced
-device time of its two kernels over 20, 4096 landmarks) at 8, 16 and 32
-keyframes in the unchanged copy and in a copy whose dispatch sends
-every window to the 12-strip instance: what the 3- and 6-strip instances
-are worth.
+device time of each of its three kernels over 20, 4096 landmarks) at 5, 8
+and 16 keyframes in the unchanged copy and in a copy whose tiling
+(``ops/ba_kernel.py``) sends every window to the 16-keyframe instance of
+the product kernel: what the 8-keyframe instance is worth.
 
 ``--versus-parent`` times K1 and K3 (``chip_smoke.check_kernels`` at
 376 x 1241, 1024 landmarks, timed: wrapper ``ms``, ``launch_only_ms``,
-``device_ms``) in another commit's tree and in this one, in turns
-(parent, this, this, parent), each in a process of its own, and prints the
-card's name and power limit beside them. The other tree is unpacked first
+``device_ms``) and K4 and K5 as a caller meets them (the wrapper's ``ms``
+and the device time of every kernel the call launches, PyTorch's
+included: the whole function) at 32 x 4096 and 8 x 1024 (K4) and at
+128 x 4096, 64 x 4096 and 64 x 1024 (K5), in another commit's tree and in
+this one, in turns (parent, this, this, parent), each in a process of its
+own, and prints the card's name and power limit beside them. The other tree is unpacked first
 into the ignored ``_parent/`` (HEAD is the parent of uncommitted work):
 
     rm -rf _parent && mkdir _parent && git archive HEAD | tar -x -C _parent
+
+``--product-phases`` times the three Schur kernels (traced device time,
+30 launches, windows of 128 and 32 keyframes x 4096 landmarks) in the
+unchanged copy and in copies of the product kernel with a phase patched
+out: the multiply-adds alone (no staging, no C transform: the results are
+wrong, the time is the FFMA loop's with its barriers), and staging and
+transform alone; in turns (whole, FMA alone, staging alone, whole).
 
 ``--natural-order`` builds K3 with its comparisons in the natural order
 (entry ``k`` of the table's ``ORDER`` taken as ``k``: bit by bit, the
@@ -89,6 +114,14 @@ thread's pixels within a bit) and with the generated order, in turns
 prints per build the wrapper ``ms``, the traced ``device_ms``, ``ptxas``'s
 registers and spills and the shared loads in the SASS. Both builds are held
 to the plain version first.
+
+``--loop-routes`` runs ``chip_smoke.run_slam_loop`` three times, each in a
+process of its own: in the parent's tree (if unpacked into ``_parent/``),
+in this tree with K4 / K5, where every call of either wrapper is also held
+against the plain version in float32 and in float64 (the largest error of
+each over the run, per window shape), and in this tree with every BA window
+on the materialised route. It prints the keyframes, closures, BA runs and
+aligned ATE of each run: which of them the new kernels' loop resembles.
 """
 
 from __future__ import annotations
@@ -122,26 +155,55 @@ FAULTS = {
     "w_rows_swapped": (
         "W[b * plane + (size_t)(6 * k + a) * L + l] = wv;",
         "W[b * plane + (size_t)(6 * k + (a ^ 1)) * L + l] = wv;", True),
-    "w_shared_transposed": (
-        "Ws[b * PLANE + lane * PITCH + 6 * kk + a] = wv;",
-        "Ws[b * PLANE + lane * PITCH + 6 * kk + (5 - a)] = wv;", True),
-    "tile_offset_off_by_one_tile": (
-        "K, L, tile * KT, KT, l0, cam);",
-        "K, L, ((tile + 1) % gridDim.y) * KT, KT, l0, cam);", False),
-    "tile_offset_dropped_for_poses": (
+    "c_operand_transposed": (
+        "cv[c][a] = w0 * h[c] + w1 * h[3 + c] + w2 * h[6 + c];",
+        "cv[c][5 - a] = w0 * h[c] + w1 * h[3 + c] + w2 * h[6 + c];", True),
+    "split_offset_off_by_one_split": (
+        "const int k0 = blockIdx.y * ks;",
+        "const int k0 = ((blockIdx.y + 1) % gridDim.y) * ks;", False),
+    "split_offset_dropped_for_poses": (
         "const float* Tk = T + 16 * k;", "const float* Tk = T + 16 * kk;", True),
     "partials_summed_one_short": (
-        "for (int b = 0; b < nb; ++b) s += ww_part[(size_t)b * n + idx];",
-        "for (int b = 0; b + 1 < nb; ++b) s += ww_part[(size_t)b * n + idx];", True),
+        "for (int c = 0; c < nc; ++c) s += part[((size_t)c * P + p) * 36 + q];",
+        "for (int c = 0; c + 1 < nc; ++c) s += part[((size_t)c * P + p) * 36 + q];", True),
+    "chunk_partial_added_twice": (
+        "s += part[((size_t)c * P + p) * 36 + q];",
+        "s += part[((size_t)c * P + p) * 36 + q] * (c == 0 ? 2.0f : 1.0f);", True),
+    "lower_triangle_not_mirrored": (
+        "if (i != j) S[(size_t)(6 * j + q / 6) * K6 + 6 * i + q % 6] =",
+        "if (i != j) S[(size_t)(6 * j + q / 6) * K6 + 6 * i + q % 6] = 0.0f * ", True),
+    "lower_blocks_not_transposed": (
+        "= v[u - q + (q % 6) * 6 + q / 6];", "= v[u];", True),
+    "hpp_tile_left_out": (
+        "for (int tt = (s0 + 1) / 2; tt < min(nlt, (s1 + 1) / 2); ++tt) {",
+        "for (int tt = (s0 + 1) / 2 + 1; tt < min(nlt, (s1 + 1) / 2); ++tt) {", True),
+    "rhs_column_dropped": (
+        "const float bl = cp[l * SLOT + 8 * c + 6];", "const float bl = 0.0f;", True),
+    "rhs_column_shifted_by_one_landmark": (
+        "const float bl = cp[l * SLOT + 8 * c + 6];",
+        "const float bl = cp[((l + 1) % LS) * SLOT + 8 * c + 6];", True),
+    "last_chunk_dropped": (
+        "const int s1 = min((L + LS - 1) / LS, s0 + sc);",
+        "const int s1 = chunk + 1 < (int)gridDim.y ? min((L + LS - 1) / LS, s0 + sc) : s0;",
+        True),
+    "ragged_landmarks_dropped": (
+        "const bool ok = row < 6 * K && l0 + l < L;",
+        "const bool ok = row < 6 * K && l0 + l < (L & ~31);", True),
+    "flag_skips_observed_tiles": (
+        "__ballot_sync(FULL, ow != 0.0f)", "__ballot_sync(FULL, ow > 1.0f)", True),
+    "never_skip": (
+        "live = any_flag(flags, tt, K, I * G, G) &&\n"
+        "                       (diag || any_flag(flags, tt, K, J * G, G));",
+        "live = true;", False),
     "cofactor_wrong_sign": (
         "const float c01 = a02 * a12 - a01 * a22;",
         "const float c01 = a01 * a22 - a02 * a12;", True),
     "hll_inv_written_with_wrong_sign": (
-        "Hll_inv[(size_t)l * 9 + i] = hi[i];",
-        "Hll_inv[(size_t)l * 9 + i] = (i == 1 || i == 3) ? -hi[i] : hi[i];", True),
+        "Hll_inv[(size_t)l * 9 + i] = h[i];",
+        "Hll_inv[(size_t)l * 9 + i] = (i == 1 || i == 3) ? -h[i] : h[i];", True),
     "hll_inv_written_3_percent_off": (
-        "Hll_inv[(size_t)l * 9 + i] = hi[i];",
-        "Hll_inv[(size_t)l * 9 + i] = (i == 1 || i == 3) ? 1.03f * hi[i] : hi[i];", True),
+        "Hll_inv[(size_t)l * 9 + i] = h[i];",
+        "Hll_inv[(size_t)l * 9 + i] = (i == 1 || i == 3) ? 1.03f * h[i] : h[i];", True),
     "hamming_control": (None, None, False),
     "hamming_word_dropped": (
         "for (int w = 0; w < WORDS; ++w)\n                d += __popc(",
@@ -201,12 +263,27 @@ FAULTS = {
         "return min(max((int)rintf(a), 0), hi);", False),
 }
 
-# sends every window to the 12-strip instance of K4
-ONE_INSTANCE = (("if (K <= 8)", "if (false)"), ("else if (K <= 16)", "else if (false)"))
+# the product kernel with a phase patched out: the multiply-adds alone
+# (staging and the C transform skipped; the shared operands are whatever
+# they hold), and staging and transform alone (no multiply-add)
+NO_STAGING = ("    auto stage = [&](int slab) {\n",
+              "    auto stage = [&](int slab) {\n        if (K > 0) return;\n")
+NO_TRANSFORM = ("        for (int e = tid; e < G * LS; e += PT) {\n"
+                "            const int l = e % LS;",
+                "        for (int e = tid; e < G * LS && K < 0; e += PT) {\n"
+                "            const int l = e % LS;")
+NO_FMA = ("        if (pair_on) {\n            const float* cp = cs + li * KPITCH;",
+          "        if (pair_on && K < 0) {\n            const float* cp = cs + li * KPITCH;")
+PRODUCT_PHASES = (("whole", ()), ("fma_alone", (NO_STAGING, NO_TRANSFORM)),
+                  ("staging_and_transform_alone", (NO_FMA,)), ("whole_again", ()))
+
+# sends every window to the 16-keyframe instance of the product kernel
+ONE_INSTANCE = (("    g = 8 if K <= 8 else 16\n", "    g = 16\n"),)
+BA_KERNEL_PY = Path("svi_mapper_tpu_torch") / "ops" / "ba_kernel.py"
 
 CHECK = ("import torch, chip_smoke as c; "
          "torch.backends.cuda.matmul.allow_tf32 = False; "
-         "c.check_backend_kernels(torch.device('cuda', 0)); print('PASSED')")
+         "c.check_backend_kernels(torch.device('cuda', 0), timed=False); print('PASSED')")
 HAMMING_CHECK = ("import torch, chip_smoke as c; "
                  "c.check_closure_kernel(torch.device('cuda', 0)); print('PASSED')")
 FRONT_CHECK = ("import torch, chip_smoke as c; d = torch.device('cuda', 0)\n"
@@ -246,27 +323,121 @@ NATURAL_ORDER = (("constexpr int order(int k) { return ORDER[k]; }",
 
 TIME_K4 = """
 import json, torch, chip_smoke as c
-from torch.profiler import ProfilerActivity, profile
 from svi_mapper_tpu_torch.ops import ba_kernel
 dev = torch.device('cuda', 0)
 out = {}
-for K in (8, 16, 32):
+for K in (5, 8, 16):
     p = c.ba_problem(K, c.BA_LANDMARKS, seed=3)
     args = [torch.from_numpy(a).to(dev) for a in
             (p['T'], p['X0'], p['obs'], p['mask'].astype('float32'))]
-    launch = lambda: ba_kernel.launch_schur_assemble(
-        *args, 1e-3, (*p['intr'], 10.0), 1e-6)
-    row = {'launch_only_ms': c.time_ms(launch, 50)}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            launch()
-        torch.cuda.synchronize()
-    for e in prof.key_averages():
-        for name in ('schur_assemble_kernel', 'schur_reduce_kernel'):
-            if name in e.key and e.device_time_total > 0:
-                row[name + '_device_ms'] = e.device_time_total / 1e3 / e.count
+    launch = lambda: ba_kernel.launch_schur_system(
+        *args, 1e-3, (*p['intr'], 10.0), 1e-6, tiled=False)
+    row = {'g': ba_kernel.schur_tiling(K, c.BA_LANDMARKS).g,
+           'launch_only_ms': c.time_ms(launch, 50),
+           'device_ms': c.traced_device_ms_by_kernel(launch, c.SCHUR_KERNELS, 20)}
     out[K] = row
 print('K4_MS ' + json.dumps(out))
+"""
+
+TIME_PRODUCT = """
+import json, torch, chip_smoke as c
+from svi_mapper_tpu_torch.ops import ba_kernel
+dev = torch.device('cuda', 0)
+out = {}
+for K, L in ((128, 4096), (32, 4096)):
+    p = c.ba_problem(K, L, seed=3)
+    args = [torch.from_numpy(a).to(dev) for a in
+            (p['T'], p['X0'], p['obs'], p['mask'].astype('float32'))]
+    launch = lambda: ba_kernel.launch_schur_system(
+        *args, 1e-3, (*p['intr'], 10.0), 1e-6, tiled=False)
+    out[f'{K}x{L}'] = c.traced_device_ms_by_kernel(launch, c.SCHUR_KERNELS, 30)
+print('PRODUCT_MS ' + json.dumps(out))
+"""
+
+# K4 and K5 as a caller meets them: the wrapper's time, and the device time
+# of every kernel it launches (the whole function, the PyTorch finish of an
+# earlier design included), at the shapes of the map optimisation and of
+# the loop. Runs in any tree whose chip_smoke.py has ba_problem and
+# time_ms.
+TIME_BACKEND = """
+import json, torch, chip_smoke as c
+from torch.profiler import ProfilerActivity, profile
+from svi_mapper_tpu_torch.ops import ba_kernel
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device('cuda', 0)
+out = {}
+for name, K, L in (('schur_assemble', 32, 4096), ('schur_assemble', 8, 1024),
+                   ('schur_assemble_tiled', 128, 4096),
+                   ('schur_assemble_tiled', 64, 4096),
+                   ('schur_assemble_tiled', 64, 1024)):
+    fn = getattr(ba_kernel, name)
+    p = c.ba_problem(K, L, seed=3)
+    args = [torch.from_numpy(a).to(dev) for a in
+            (p['T'], p['X0'], p['obs'], p['mask'].astype('float32'))]
+    kw = dict(zip(('fx', 'fy', 'cx', 'cy', 'bq'), p['intr']))
+    call = lambda: fn(*args, 1e-3, **kw)
+    row = {'ms': c.time_ms(call, 50)}
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_time_total > 0
+          and e.device_type == torch.autograd.DeviceType.CUDA]
+    row['device_ms'] = sum(e.device_time_total for e in ev) / 1e3 / 20
+    row['kernels_per_call'] = sum(e.count for e in ev) / 20
+    row['by_kernel'] = {e.key[:60]: e.device_time_total / 1e3 / 20 for e in
+                        sorted(ev, key=lambda e: -e.device_time_total)[:6]}
+    out[f'{name} {K}x{L}'] = row
+print('BACKEND_MS ' + json.dumps(out))
+"""
+
+
+LOOP_ROUTE = """
+import json, sys, torch, chip_smoke as c
+from svi_mapper_tpu_torch.ops import ba_kernel
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device('cuda', 0)
+route = sys.argv[1]
+errs = {}
+
+
+def witnessed(name):
+    # the wrapper's result, unchanged; beside it, how far it and the plain
+    # float32 version are from the plain version in float64 on every call
+    fn, plain = getattr(ba_kernel, name), getattr(ba_kernel, name + '_plain')
+
+    def call(*args, **kw):
+        got = fn(*args, **kw)
+        want32 = plain(*args, **kw)
+        want64 = plain(*[a.double() if torch.is_tensor(a) else a for a in args], **kw)
+        K, L = args[3].shape
+        row = errs.setdefault(f'{name} {K}x{L}', {'calls': 0, 'kernel': {}, 'plain': {}})
+        row['calls'] += 1
+        for side, e in (('kernel', c.schur_errors(got, want64)),
+                        ('plain', c.schur_errors(want32, want64))):
+            for k, v in e.items():
+                row[side][k] = max(row[side].get(k, 0.0), v)
+        return got
+    return call
+
+
+if route == 'kernels_vs_float64':
+    for name in ('schur_assemble', 'schur_assemble_tiled'):
+        setattr(ba_kernel, name, witnessed(name))
+    loop, _ = c.run_slam_loop(dev)
+elif route == 'materialised':
+    loop, _ = c.run_slam_loop(dev, schur_kernels=False)
+else:
+    loop, _ = c.run_slam_loop(dev)
+print('LOOP ' + json.dumps({
+    'keyframes': loop['keyframes'], 'stats': loop['stats'],
+    'accepted_closures': loop['accepted_closures'],
+    'ate_recorded_m': loop['ate_recorded_m'], 'ate_optimised_m': loop['ate_optimised_m'],
+    'launches': {k: loop['launches'][k] for k in ('schur_assemble', 'schur_assemble_tiled')},
+    'rel_err_vs_float64': errs}))
 """
 
 
@@ -306,14 +477,28 @@ def time_instances() -> int:
     row = {"phase": "k4_instances", "nvidia_smi": nvidia_smi(), "L": 4096}
     # by-K, one-instance, one-instance, by-K: drift shows as a difference
     # between the two runs of one variant
-    for name, patches in (("by_K", ()), ("all_12_strips", ONE_INSTANCE),
-                          ("all_12_strips_again", ONE_INSTANCE), ("by_K_again", ())):
-        proc = run_in_copy(TIME_K4, patches)
+    for name, patches in (("by_K", ()), ("all_16", ONE_INSTANCE),
+                          ("all_16_again", ONE_INSTANCE), ("by_K_again", ())):
+        proc = run_in_copy(TIME_K4, patches, BA_KERNEL_PY)
         line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("K4_MS ")), None)
         if proc.returncode != 0 or line is None:
             print(proc.stderr[-2000:], file=sys.stderr)
             return 1
         row[name] = json.loads(line[6:])
+    print(json.dumps(row), flush=True)
+    return 0
+
+
+def time_product_phases() -> int:
+    row = {"phase": "product_phases", "nvidia_smi": nvidia_smi()}
+    for name, patches in PRODUCT_PHASES:
+        proc = run_in_copy(TIME_PRODUCT, patches)
+        line = next((ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("PRODUCT_MS ")), None)
+        if proc.returncode != 0 or line is None:
+            print(proc.stderr[-2000:], file=sys.stderr)
+            return 1
+        row[name] = json.loads(line[11:])
     print(json.dumps(row), flush=True)
     return 0
 
@@ -339,20 +524,45 @@ def nvidia_smi() -> str:
 
 
 def versus_parent() -> int:
-    """K1 and K3 of the parent's tree and of this one, in turns."""
+    """K1 and K3, and K4 and K5 as callers meet them, of the parent's tree
+    and of this one, in turns."""
     if not (PARENT / "chip_smoke.py").exists():
         print(f"no parent tree in {PARENT} (see the module's docstring)", file=sys.stderr)
         return 1
     row = {"phase": "versus_parent", "nvidia_smi": nvidia_smi()}
     for name, tree in (("parent", PARENT), ("this", REPO), ("this_again", REPO),
                        ("parent_again", PARENT)):
-        proc = subprocess.run([sys.executable, "-c", TIME_FRONT], cwd=tree, text=True,
-                              capture_output=True, timeout=900)
-        line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("FRONT_MS ")), None)
+        proc = subprocess.run([sys.executable, "-c", TIME_FRONT + TIME_BACKEND],
+                              cwd=tree, text=True, capture_output=True, timeout=900)
+        lines = {ln.split(" ", 1)[0]: json.loads(ln.split(" ", 1)[1])
+                 for ln in proc.stdout.splitlines()
+                 if ln.startswith(("FRONT_MS ", "BACKEND_MS "))}
+        if proc.returncode != 0 or len(lines) != 2:
+            print(proc.stderr[-2000:], file=sys.stderr)
+            return 1
+        row[name] = {"front": lines["FRONT_MS"], "backend": lines["BACKEND_MS"]}
+    print(json.dumps(row), flush=True)
+    return 0
+
+
+def loop_routes() -> int:
+    """The whole system's loop, once each: with the parent's K4 / K5 (where
+    a parent tree is unpacked), with this tree's and their distance from
+    float64 on every call, and with the materialised route instead of
+    either kernel."""
+    row = {"phase": "loop_routes", "nvidia_smi": nvidia_smi()}
+    runs = [("this_kernels", REPO, "kernels_vs_float64"),
+            ("this_materialised", REPO, "materialised")]
+    if (PARENT / "chip_smoke.py").exists():
+        runs.insert(0, ("parent_kernels", PARENT, "kernels"))
+    for name, tree, route in runs:
+        proc = subprocess.run([sys.executable, "-c", LOOP_ROUTE, route], cwd=tree,
+                              text=True, capture_output=True, timeout=600)
+        line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("LOOP ")), None)
         if proc.returncode != 0 or line is None:
             print(proc.stderr[-2000:], file=sys.stderr)
             return 1
-        row[name] = json.loads(line[9:])
+        row[name] = json.loads(line[5:])
     print(json.dumps(row), flush=True)
     return 0
 
@@ -364,6 +574,10 @@ def main() -> int:
         return versus_parent()
     if sys.argv[1:] == ["--natural-order"]:
         return time_natural_order()
+    if sys.argv[1:] == ["--product-phases"]:
+        return time_product_phases()
+    if sys.argv[1:] == ["--loop-routes"]:
+        return loop_routes()
     ok = True
     for name in sys.argv[1:] or FAULTS:
         row = run_fault(name)

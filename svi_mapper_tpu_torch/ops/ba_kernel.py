@@ -26,35 +26,44 @@ over from there: the full ``[6K, 6K]`` products of which only the diagonal
 blocks were read (the 21 + 6 numbers per keyframe are summed directly), the
 128-lane padding, the 512-landmark block and the transposed input layouts.
 
-Division of work, as in the TPU kernels: K4 forms ``W Hll^-1 W^T`` in the
-kernel (a shared-memory tiled float32 product over the landmark axis); K5
-leaves that product, the sum of the per-tile partial ``H_ll``/``b_l`` and the
-3x3 inverse to PyTorch (``torch.matmul``, float32, TF32 off). ``rhs`` is a
-small PyTorch contraction for both.
+Division of work on the card: both entry points launch the same three
+kernels (assembly, product, reduction; :class:`SchurTiling` cuts the
+window) and compute the whole function there: the product forms only the
+upper triangle of 6x6 blocks of the symmetric ``W Hll^-1 W^T``, with
+``rhs`` as one more column and ``C = W Hll^-1`` formed in shared memory;
+landmark tiles that a keyframe group does not observe are skipped (their
+terms are exact zeros). The wrappers check, allocate, launch and count;
+they do no arithmetic. The TPU kernel of K5 left the product to XLA.
 
-Bound on the card at K = 32, L = 4096 (K4): 2.6 MB in, 9.8 MB out (the W
-planes are 9.4 MB) = 3.7 us of memory time; 0.55 GFLOP needed, of which 0.47
-is the upper block triangle of the symmetric ``[192, 12288] x [12288, 192]``
-product (the kernel forms all of it: 0.99 GFLOP) = 8 us at the float32 rate:
-operations bound it. K5 at K = 128: ~49 MB moved (W planes 37.7 MB) = 15 us
-against ~0.3 GFLOP = 4 us: bytes bound it.
+Bound on the card, where every keyframe observes every landmark: at
+K = 32, L = 4096 2.6 MB in, 9.8 MB out (the W planes are 9.4 MB) = 3.7 us
+of memory time against 0.55 GFLOP, 0.47 of it the upper block triangle of
+the ``[192, 12288] x [12288, 192]`` product, = 8 us at the float32 rate; at
+K = 128 7.6 GFLOP (7.3 the triangle) = 0.11 ms against 49 MB = 15 us. A
+window whose keyframes see a part of the landmarks needs less: the product
+only for the pairs of keyframes that observe a landmark (``chip_smoke.py``
+counts those).
 
 Numerics: float32 with another summation order than the materialised
 route; the two agree to ~1e-4 relative, not bit-exactly. The kernels use no
-atomics: per-block partial sums are reduced in a fixed order, so a kernel
-equals itself from run to run.
+atomics: partial sums are reduced in a fixed order, so the kernels equal
+themselves from run to run.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
+from collections.abc import Mapping
+from types import MappingProxyType
 
 import numpy as np
 import torch
 
 from svi_mapper_tpu_torch.ops import cuda_build
-from svi_mapper_tpu_torch.utils.device import require_fp32_matmul
 
 KT = 32                      # keyframes per tile (K5), and K4's ceiling
-LANDMARK_TILE = 32           # landmarks per CUDA block (one per lane)
+LANDMARK_TILE = 32           # landmarks per assembly block (one per lane)
 _UPPER = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
@@ -222,11 +231,167 @@ def schur_assemble_tiled_plain(T_wc, points_w, obs_uv, obs_w, lam, *,
 
 
 # ---------------------------------------------------------------------------
+# the tiling of the CUDA kernels
+# ---------------------------------------------------------------------------
+
+ASSEMBLY_WARPS = 4           # warps of an assembly block, one keyframe each
+PRODUCT_SLAB = 16            # landmarks a product block stages at a time
+MAX_CHUNK_SLABS = 512        # slabs per product chunk (the kernel's list of
+                             # live slabs)
+MAX_CHUNKS = 128             # product chunks: the reduction adds an entry's
+                             # partials one after another
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class SchurTiling:
+    """How ``csrc/schur_assemble.cu`` cuts a ``[K, L]`` window; the kernels
+    take ``ks``, ``sc`` and ``g`` from here and mirror the rest.
+
+    * assembly: blocks of ``LANDMARK_TILE`` landmarks x ``ks`` keyframes
+      (grid ``nlt x nks``);
+    * product: keyframe groups of ``g``; one block per (tile of the upper
+      triangle of groups, ``I <= J``) x (chunk of ``sc`` slabs of
+      ``PRODUCT_SLAB`` landmarks);
+    * reduction: one thread per entry of the upper block triangle and of
+      ``rhs``.
+    """
+
+    K: int
+    L: int
+    g: int
+    ks: int
+    sc: int
+
+    @property
+    def nlt(self) -> int:
+        return -(-self.L // LANDMARK_TILE)
+
+    @property
+    def nks(self) -> int:
+        return -(-self.K // self.ks)
+
+    @property
+    def n_slabs(self) -> int:
+        return -(-self.L // PRODUCT_SLAB)
+
+    @property
+    def nc(self) -> int:
+        return -(-self.n_slabs // self.sc)
+
+    @property
+    def n_groups(self) -> int:
+        return -(-self.K // self.g)
+
+    @property
+    def pairs(self) -> int:
+        return self.K * (self.K + 1) // 2
+
+    def tiles(self) -> list[tuple[int, int]]:
+        """The product grid's tiles ``(I, J)``, in ``blockIdx.x`` order."""
+        n = self.n_groups
+        return [(i, j) for i in range(n) for j in range(i, n)]
+
+    def blocks(self, tile: tuple[int, int]) -> list[tuple[int, int]]:
+        """The 6x6 blocks ``(i, j)`` a tile forms: ``i <= j < K``."""
+        I, J = tile
+        return [(i, j)
+                for i in range(I * self.g, min(self.K, (I + 1) * self.g))
+                for j in range(J * self.g, min(self.K, (J + 1) * self.g))
+                if I < J or i <= j]
+
+    def chunks(self) -> list[tuple[int, int]]:
+        """Landmark range ``[l0, l1)`` of each product chunk."""
+        step = self.sc * PRODUCT_SLAB
+        return [(l0, min(self.L, l0 + step)) for l0 in range(0, self.L, step)]
+
+    def partial_floats(self) -> int:
+        """The product's partials: per chunk, the upper block triangle and
+        the rhs column."""
+        return self.nc * (36 * self.pairs + 6 * self.K)
+
+    @functools.cache
+    def layout(self) -> Mapping[str, tuple[int, int]]:
+        """Offset and length, in 4-byte words, of every region of the one
+        buffer a call allocates besides ``W``: the outputs ``S``, ``rhs``,
+        ``Hll_inv``, ``b_l`` and the scratch (every region 16-byte aligned,
+        ``flags`` int32)."""
+        K, L = self.K, self.L
+        sizes = [("part", self.nc * 36 * self.pairs), ("rhs_part", self.nc * 6 * K),
+                 ("hrec", 12 * L), ("pp_part", self.nlt * K * 27),
+                 ("hl_part", self.nks * 9 * L), ("flags", self.nlt * K),
+                 ("S", 36 * K * K), ("rhs", 6 * K), ("Hll_inv", 9 * L), ("b_l", 3 * L)]
+        out, at = {}, 0
+        for name, n in sizes:
+            out[name] = (at, n)
+            at += -(-n // 4) * 4
+        out["total"] = (0, at)
+        return MappingProxyType(out)
+
+
+@functools.lru_cache(maxsize=256)
+def schur_tiling(K: int, L: int, sms: int = H100_SMS) -> SchurTiling:
+    """The tiling of a ``[K, L]`` window on a card of ``sms`` SMs.
+
+    Groups of 8 keyframes up to K = 8, of 16 beyond (the two instances of
+    the product kernel: 64 threads, four blocks per SM; 256 threads, two).
+    The assembly splits the keyframe axis, in splits of at least two
+    keyframes per warp, until the grid has about eight blocks of four warps
+    per SM, so that the W planes' stores have warps enough in flight. The
+    product's chunk is the number of slabs ``sc`` that minimises waves x
+    slabs per block, or the largest within 10 % of that (fewer partials to
+    add); there are at most ``MAX_CHUNKS`` chunks, and with more than one
+    the partials may not exceed the W planes (one chunk's partial already
+    does when L < K + 2).
+    """
+    if K < 1 or L < 1:
+        raise ValueError(f"an empty window: K = {K}, L = {L}")
+    g = 8 if K <= 8 else 16
+    nlt = -(-L // LANDMARK_TILE)
+    nks = min(-(-K // (2 * ASSEMBLY_WARPS)), max(1, -(-8 * sms // nlt)))
+    ks = -(-(-(-K // nks)) // ASSEMBLY_WARPS) * ASSEMBLY_WARPS
+    n = -(-K // g)
+    tiles = n * (n + 1) // 2
+    slots = sms * (4 if g == 8 else 2)
+    per_chunk = 18 * K * (K + 1) + 6 * K
+    n_slabs = -(-L // PRODUCT_SLAB)
+    cost = {}
+    for sc in range(1, min(n_slabs, MAX_CHUNK_SLABS) + 1):
+        nc = -(-n_slabs // sc)
+        if nc == 1 or (nc <= MAX_CHUNKS and nc * per_chunk <= 18 * K * L):
+            cost[sc] = -(-tiles * nc // slots) * sc
+    least = min(cost.values())
+    sc = max(c for c, v in cost.items() if v <= 1.1 * least)
+    return SchurTiling(K=K, L=L, g=g, ks=ks, sc=sc)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
 
 schur_assemble_launches = 0
 schur_assemble_tiled_launches = 0
+
+
+_election_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The assembly's completion counters, one per landmark tile: zero
+    between calls (the block a counter elects resets it), kept per device
+    and stream. The launches on one stream run one after another, so no
+    two calls share a counter at once."""
+    key = (dev.index, stream)
+    have = _election_counters.get(key)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _election_counters[key] = have
+    return have
 
 
 def _cuda_inputs(T_wc, points_w, obs_uv, obs_w, name: str):
@@ -252,35 +417,40 @@ def _cuda_inputs(T_wc, points_w, obs_uv, obs_w, name: str):
     return out
 
 
-def _scalars(*vals) -> list[float]:
-    return [float(v) for v in vals]
-
-
-def launch_schur_assemble(T, X, obs, ow, lam, cam_scalars, point_damping):
-    """Allocate the outputs and the per-block scratch and launch K4 on
-    checked, contiguous CUDA inputs. Returns the kernel's own outputs
-    ``(S, b_p, Hll_inv, b_l, W)``; ``cam_scalars`` is ``(fx, fy, cx, cy, bq,
-    kernel_px2)``."""
-    global schur_assemble_launches
+def launch_schur_system(T, X, obs, ow, lam, cam_scalars, point_damping, *,
+                        tiled: bool):
+    """Allocate and launch the three kernels on checked, contiguous CUDA
+    inputs and count the launch under K5 (``tiled``) or K4. Returns
+    ``(S, rhs, Hll_inv, b_l, W)``; ``cam_scalars`` is ``(fx, fy, cx, cy,
+    bq, kernel_px2)``."""
+    global schur_assemble_launches, schur_assemble_tiled_launches
     K, L = ow.shape
-    lib = cuda_build.load_library()
     dev = T.device
-    K6 = 6 * K
-    nb = -(-L // LANDMARK_TILE)
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
-    S, b_p, Hll_inv, b_l, W = (new(K, 6, K, 6), new(K, 6), new(L, 3, 3),
-                               new(L, 3), new(3, K6, L))
-    ww_part, pp_part = new(nb, K6, K6), new(nb, K, 27)
+    tiling = schur_tiling(K, L, _sm_count(dev.index))
+    lay = tiling.layout()
+    W = torch.empty((3, 6 * K, L), dtype=torch.float32, device=dev)
+    buf = torch.empty(lay["total"][1], dtype=torch.float32, device=dev)
+    base = buf.data_ptr()
+    ptr = {name: base + 4 * at for name, (at, _) in lay.items()}
+    damping = float(np.float32(float(lam)) + np.float32(point_damping))
+    lib = cuda_build.load_library()
     with torch.cuda.device(dev):
-        err = lib.svi_schur_assemble(
-            T.data_ptr(), X.data_ptr(), obs.data_ptr(), ow.data_ptr(),
-            S.data_ptr(), b_p.data_ptr(), Hll_inv.data_ptr(), b_l.data_ptr(),
-            W.data_ptr(), ww_part.data_ptr(), pp_part.data_ptr(), K, L,
-            *_scalars(*cam_scalars, point_damping, lam),
-            torch.cuda.current_stream().cuda_stream)
-    cuda_build.check_launch(err, "svi_schur_assemble")
-    schur_assemble_launches += 1
-    return S, b_p, Hll_inv, b_l, W
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.svi_schur_system(
+            T.data_ptr(), X.data_ptr(), obs.data_ptr(), ow.data_ptr(), ptr["S"],
+            ptr["rhs"], ptr["Hll_inv"], ptr["b_l"], W.data_ptr(), ptr["pp_part"],
+            ptr["hl_part"], ptr["flags"], ptr["hrec"], ptr["part"], ptr["rhs_part"],
+            _counters(dev, stream, tiling.nlt).data_ptr(), K, L,
+            tiling.ks, tiling.sc, tiling.g, *[float(v) for v in cam_scalars],
+            damping, stream)
+    cuda_build.check_launch(err, "svi_schur_system")
+    if tiled:
+        schur_assemble_tiled_launches += 1
+    else:
+        schur_assemble_launches += 1
+    view = lambda name, *shape: buf.narrow(0, lay[name][0], lay[name][1]).view(shape)  # noqa: E731
+    return (view("S", K, 6, K, 6), view("rhs", K, 6), view("Hll_inv", L, 3, 3),
+            view("b_l", L, 3), W)
 
 
 def schur_assemble(T_wc, points_w, obs_uv, obs_w, lam, *,
@@ -290,7 +460,7 @@ def schur_assemble(T_wc, points_w, obs_uv, obs_w, lam, *,
 
     ``obs_w`` is the observation mask (times any information scale) as
     float; ``lam`` a Python float or a 0-d tensor. CUDA tensors go through
-    the hand-written kernel (or raise); only CPU tensors take
+    the hand-written kernels (or raise); only CPU tensors take
     :func:`schur_assemble_plain`.
     """
     if not T_wc.is_cuda:
@@ -300,51 +470,23 @@ def schur_assemble(T_wc, points_w, obs_uv, obs_w, lam, *,
     K = obs_w.shape[0]
     if K > KT:
         raise ValueError(f"schur_assemble takes K <= {KT} keyframes, got {K}")
-    S, b_p, Hll_inv, b_l, W = launch_schur_assemble(
+    return launch_schur_system(
         *_cuda_inputs(T_wc, points_w, obs_uv, obs_w, "schur_assemble"), lam,
-        (fx, fy, cx, cy, bq, kernel_px2), point_damping)
-    # the small rhs contraction stays PyTorch, as it stayed outside the TPU
-    # kernel
-    return S, _rhs(b_p, _c_planes(W, Hll_inv), b_l), Hll_inv, b_l, W
-
-
-def launch_schur_assemble_tiled(T, X, obs, ow, cam_scalars):
-    """Allocate and launch K5 on checked, contiguous CUDA inputs. Returns
-    the kernel's own outputs ``(hl_part [K/32, 9, L], H_pp, b_p, W)``."""
-    global schur_assemble_tiled_launches
-    K, L = ow.shape
-    lib = cuda_build.load_library()
-    dev = T.device
-    nb = -(-L // LANDMARK_TILE)
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
-    H_pp, b_p, W = new(K, 6, 6), new(K, 6), new(3, 6 * K, L)
-    hl_part, pp_part = new(K // KT, 9, L), new(nb, K, 27)
-    with torch.cuda.device(dev):
-        err = lib.svi_schur_assemble_tiled(
-            T.data_ptr(), X.data_ptr(), obs.data_ptr(), ow.data_ptr(),
-            H_pp.data_ptr(), b_p.data_ptr(), hl_part.data_ptr(), W.data_ptr(),
-            pp_part.data_ptr(), K, L, *_scalars(*cam_scalars),
-            torch.cuda.current_stream().cuda_stream)
-    cuda_build.check_launch(err, "svi_schur_assemble_tiled")
-    schur_assemble_tiled_launches += 1
-    return hl_part, H_pp, b_p, W
+        (fx, fy, cx, cy, bq, kernel_px2), point_damping, tiled=False)
 
 
 def schur_assemble_tiled(T_wc, points_w, obs_uv, obs_w, lam, *,
                          fx, fy, cx, cy, bq, kernel_px2=10.0,
                          point_damping=1e-6):
-    """K-tiled fused Schur assembly for ``K % 32 == 0``. Same return
-    contract as :func:`schur_assemble`. The kernel emits, per tile of 32
-    keyframes, the partial ``H_ll``/``b_l`` per landmark, the tile's ``H_pp``
-    blocks and ``b_p`` and its rows of the W planes; the sum over tiles, the
-    3x3 inverse, ``W Hll^-1 W^T`` and ``rhs`` are PyTorch."""
+    """Fused Schur assembly for ``K % 32 == 0`` keyframes. Same
+    return contract as :func:`schur_assemble`, and on the card the same
+    kernels; its plain version goes through per-tile partial sums of 32
+    keyframes, as the TPU kernel did."""
     _check_tiled(obs_w.shape[0])
     if not T_wc.is_cuda:
         return schur_assemble_tiled_plain(
             T_wc, points_w, obs_uv, obs_w, lam, fx=fx, fy=fy, cx=cx, cy=cy,
             bq=bq, kernel_px2=kernel_px2, point_damping=point_damping)
-    require_fp32_matmul(T_wc)
-    parts = launch_schur_assemble_tiled(
-        *_cuda_inputs(T_wc, points_w, obs_uv, obs_w, "schur_assemble_tiled"),
-        (fx, fy, cx, cy, bq, kernel_px2))
-    return _finish_tiled(*parts, lam, point_damping)
+    return launch_schur_system(
+        *_cuda_inputs(T_wc, points_w, obs_uv, obs_w, "schur_assemble_tiled"), lam,
+        (fx, fy, cx, cy, bq, kernel_px2), point_damping, tiled=True)

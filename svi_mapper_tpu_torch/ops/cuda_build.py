@@ -46,12 +46,10 @@ _SIGNATURES = {
     "svi_stereo_profiles": [_P] * 5 + [_I] * 3 + [_P],
     # img, out, H, W, stream
     "svi_brief_dense_fused": [_P] * 2 + [_I] * 2 + [_P],
-    # T, X, obs, obs_w, S, b_p, Hll_inv, b_l, W, ww_part, pp_part, K, L,
-    # fx, fy, cx, cy, bq, kernel_px2, point_damping, lam, stream
-    "svi_schur_assemble": [_P] * 11 + [_I] * 2 + [_F] * 8 + [_P],
-    # T, X, obs, obs_w, H_pp, b_p, hl_part, W, pp_part, K, L,
-    # fx, fy, cx, cy, bq, kernel_px2, stream
-    "svi_schur_assemble_tiled": [_P] * 9 + [_I] * 2 + [_F] * 6 + [_P],
+    # T, X, obs, obs_w, S, rhs, Hll_inv, b_l, W, pp_part, hl_part, flags,
+    # hrec, part, rhs_part, count, K, L, ks, ct, g, fx, fy, cx, cy, bq,
+    # kernel_px2, damping, stream
+    "svi_schur_system": [_P] * 16 + [_I] * 5 + [_F] * 7 + [_P],
     # a, b, out, B, N, M, stream
     "svi_hamming_matrix": [_P] * 3 + [_I] * 3 + [_P],
 }

@@ -284,7 +284,7 @@ def test_kernel_build_needs_a_compiler():
         "stereo_profiles.cu", "track_scores.cu"]
     assert set(cuda_build._SIGNATURES) == {
         "svi_track_scores", "svi_stereo_profiles", "svi_brief_dense_fused",
-        "svi_schur_assemble", "svi_schur_assemble_tiled", "svi_hamming_matrix"}
+        "svi_schur_system", "svi_hamming_matrix"}
     # each exported name is defined, with as many parameters, in a source
     import re
     text = "".join(p.read_text() for p in cuda_build.sources())
