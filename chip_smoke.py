@@ -13,18 +13,22 @@ one CUDA card, ``nvcc`` and nothing from the network. It
    times kernel and plain version with CUDA events: the front-end kernels
    at the shapes of the main path (376x1248 field, 1024 landmarks /
    keypoints, 128 disparities) and at two ragged small shapes, exact
-   equality; the Schur assembly through both entry points (K4, K5; three
-   kernels) at (K, L) = (8, 640), (5, 1000), (1, 640), (31, 4097),
-   (32, 4097), (32, 4096), (64, 4096), (128, 4096), at the windows of the
-   whole system's loop, (8, 1024) and (64, 1024), and at a 64 x 1024 window
-   padded as the loop pads its windows, within the stated relative
-   tolerances, no further from float64 than the plain version, the same
-   bits twice, each kernel's registers and spills (none allowed); the
-   Hamming-matrix kernel at 256 x 4096, ragged and batched shapes, exact
-   equality; every kernel's device time from a ``torch.profiler`` trace;
+   equality (K2 through both entries, the fused match in five cases of
+   ``match_stereo`` and with planted ties); the Schur assembly through both
+   entry points (K4, K5; three kernels) at (K, L) = (8, 640), (5, 1000),
+   (1, 640), (31, 4097), (32, 4097), (32, 4096), (64, 4096), (128, 4096),
+   at the windows of the whole system's loop, (8, 1024) and (64, 1024), and
+   at a 64 x 1024 window padded as the loop pads its windows, within the
+   stated relative tolerances, no further from float64 than the plain
+   version, the same bits twice, each kernel's registers and spills (none
+   allowed); K6 through both entries, the Hamming matrix at 256 x 4096,
+   ragged and batched shapes and the pool count at ``[8, 256, 16 x 256]``
+   and ragged shapes with planted cutoff distances and invalid entries,
+   exact equality, no spills in K2 or K6; every kernel's device time from a
+   ``torch.profiler`` trace;
 4. compares the port on the card with the port on the CPU (plain versions)
-   on a short small sequence, SV and GT mode, on a small BA window and
-   pose graph, and on the closure query below;
+   on a short small sequence, SV and GT mode, on a small BA window and pose
+   graph, and on the closure query below;
 5. drives the main paths. The front-end: the KITTI-00 calibration at
    376x1241 with ``DEFAULT_PARAMS``, 16 frames through
    ``StereoTracker.process`` and 8 through ``process_many(chunk=8)``,
@@ -32,15 +36,17 @@ one CUDA card, ``nvcc`` and nothing from the network. It
    acceptance, track counts, the trajectory error against the exact ground
    truth. The map optimisation: ``prepare_ba_window`` -> ``bundle_adjust``
    at 32 / 64 / 128 keyframes x 4096 landmarks, ``optimize_pose_graph`` at
-   680 keyframes, ``align_clouds_batch`` at 4 x 256; checks that chi^2
-   falls and the errors against the generating truth. The closure query:
-   a database of 680 keyframes x 256 pool entries with planted revisits and
-   decoys, ``find_closures_batch`` of 8 queries. The whole system: a
-   208-frame loop of 26 m radius at 376x1241 through
+   680 keyframes (twice: the same bits), ``align_clouds_batch`` at 4 x 256;
+   checks that chi^2 falls and the errors against the generating truth. The
+   closure query: a database of 680 keyframes x 256 pool entries with
+   planted revisits and decoys, ``find_closures_batch`` of 8 queries. The
+   whole system: a 208-frame loop of 26 m radius at 376x1241 through
    ``SLAMSystem.process_many(chunk=32)`` -> ``finalize_backend`` ->
    ``optimized_trajectory``, which must close the loop, and every BA window
    it assembles must have a shape at which the kernels were held against
-   their plain versions. Each path must have launched its kernels.
+   their plain versions. Each path must have launched its kernels: K2's
+   fused match on every ``match_stereo`` call, K6's pool count on every
+   pool scoring.
 
 Every phase prints one line of JSON. Any failure raises, so the exit code
 is non-zero and the final line is not printed. The last line is
@@ -50,6 +56,7 @@ is non-zero and the final line is not printed. The last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -61,6 +68,9 @@ import time
 # stays a lower bound)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# the dense int8 rate of the tensor cores (data sheet); the data sheet
+# gives no rate for the binary MMA K6 runs: binary_mma_ops_per_s measures it
+PEAK_INT8_OPS_PER_S = 1979e12
 
 H, W_RAW = 376, 1241
 N_LANDMARKS = 1024
@@ -128,10 +138,88 @@ def ceiling_ms(count: float, per_clock: float, sms: int = 132) -> float | None:
     return None if hz is None else count / (per_clock * sms * hz) * 1e3
 
 
-def bound(bytes_moved: float, operations: float) -> tuple[float, str]:
+def bound(bytes_moved: float, operations: float,
+          ops_per_s: float = PEAK_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = operations / PEAK_OPS_PER_S * 1e3
+    t_ops = operations / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# A probe of the binary MMA's rate: every warp issues CHAINS independent
+# m16n8k256 b1 AND-popc MMAs per turn of its loop, on operands that are all
+# ones, so each accumulator ends at iters * 256 and the sum a thread writes
+# is known exactly.
+B1_PROBE_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+constexpr int CHAINS = 8;
+
+__global__ void __launch_bounds__(256) b1_mma_rate_kernel(int* out, uint32_t x, int iters) {
+    int acc[CHAINS][4] = {};
+    for (int i = 0; i < iters; ++i) {
+#pragma unroll
+        for (int j = 0; j < CHAINS; ++j)
+            asm volatile(
+                "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+                "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                : "+r"(acc[j][0]), "+r"(acc[j][1]), "+r"(acc[j][2]), "+r"(acc[j][3])
+                : "r"(x), "r"(x), "r"(x), "r"(x), "r"(x), "r"(x));
+    }
+    int sum = 0;
+#pragma unroll
+    for (int j = 0; j < CHAINS; ++j) sum += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
+    out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+
+extern "C" int svi_b1_mma_rate(void* out, int blocks, int iters, void* stream) {
+    b1_mma_rate_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>((int*)out, 0xffffffffu, iters);
+    return (int)cudaGetLastError();
+}
+"""
+B1_PROBE_CHAINS, B1_PROBE_WARPS = 8, 8
+
+
+@functools.cache
+def binary_mma_ops_per_s() -> float:
+    """The rate of ``mma.sync m16n8k256 b1 AND-popc`` on this card, in
+    operations per second counted as an int8 product counts them (an AND
+    and an add per bit pair: ``2 * 16 * 8 * 256`` per MMA), measured by
+    ``B1_PROBE_SOURCE`` over four blocks of eight warps per SM, built
+    apart from the package's library into its build directory."""
+    import ctypes
+    import os
+
+    import torch
+
+    from svi_mapper_tpu_torch.ops import cuda_build
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = cuda_build.BUILD_DIR / f"b1_mma_rate.{os.getpid()}.cu"
+    lib_path = src.with_suffix(".so")
+    src.write_text(B1_PROBE_SOURCE)
+    built = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-shared", str(src),
+                            "-o", str(lib_path)], capture_output=True, text=True)
+    require(built.returncode == 0, f"the binary MMA probe did not build:\n{built.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.svi_b1_mma_rate
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 4096
+    out = torch.zeros(blocks * 32 * B1_PROBE_WARPS, dtype=torch.int32, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        cuda_build.check_launch(fn(ctypes.c_void_p(out.data_ptr()), blocks, iters, stream),
+                                "b1_mma_rate_kernel")
+
+    ms = time_ms(launch, 3, 1)
+    # each thread: CHAINS accumulators of 4 entries, each iters * 256
+    require(bool((out == B1_PROBE_CHAINS * 4 * iters * 256).all()),
+            "the binary MMA probe summed wrongly")
+    mmas = blocks * B1_PROBE_WARPS * B1_PROBE_CHAINS * iters
+    return mmas * 2 * 16 * 8 * 256 / (ms * 1e-3)
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +289,8 @@ def check_kernels(device, h: int, w_raw: int, n: int, max_disparity: int,
     import torch
     import torch.nn.functional as F
 
+    from svi_mapper_tpu_torch.frontend.stereo import match_stereo
+    from svi_mapper_tpu_torch.io import synthetic
     from svi_mapper_tpu_torch.ops import (
         cuda_build,
         descriptors,
@@ -296,37 +386,162 @@ def check_kernels(device, h: int, w_raw: int, n: int, max_disparity: int,
 
     k1["planted"] = check_track_scores_planted(device, h, wp, n)
 
-    # --- K2: stereo profiles ---------------------------------------------
+    # --- K2: stereo profiles, and the fused match ---------------------------
     desc_k = descriptors.brief_at(field_l, inp["uv_near"])
     prof, u_r, x0 = stereo_kernel.stereo_profiles(
         field_r, inp["uv"], desc_k, max_disparity=max_disparity)
     torch.cuda.synchronize()
     De = prof.shape[1]
-    _, v_r, x0p = stereo_kernel.span_origin(inp["uv"], h, wp, De)
+    u_rp, v_r, x0p = stereo_kernel.span_origin(inp["uv"], h, wp, De)
     want2 = stereo_kernel.row_span_profiles(field_r, v_r, x0p, desc_k, De)
-    err2 = max_abs_err(prof, want2)
-    require(De == min(max_disparity, wp) and torch.equal(x0, x0p),
-            "De == min(max_disparity, wp) and torch.equal(x0, x0p)")
-    require(torch.equal(prof, want2),
-            "stereo_profiles disagrees with the row-span profile")
+    err2 = max(max_abs_err(prof, want2), max_abs_err(u_r, u_rp), max_abs_err(x0, x0p))
+    require(De == min(max_disparity, wp), "De == min(max_disparity, wp)")
+    require(torch.equal(prof, want2) and torch.equal(u_r, u_rp) and torch.equal(x0, x0p),
+            "stereo_profiles disagrees with span_origin and the row-span profile")
     k2 = dict(name="stereo_profiles", max_abs_err=err2)
+    k2m = dict(name="stereo_match", max_abs_err=0,
+               cases=check_stereo_match_cases(field_r, inp["uv"], desc_k, max_disparity))
+    k2m["planted"] = check_stereo_match_planted(device, h, wp, n, max_disparity)
     if timed:
         cols = x0p[:, None] + torch.arange(De, device=device)[None, :]
         touched = unique_pixels(h, wp, v_r[:, None].expand(-1, De), cols)
+        lib = cuda_build.load_library()
+        uv32 = inp["uv"].contiguous()
         k2["ms"] = time_ms(lambda: stereo_kernel.stereo_profiles(
             field_r, inp["uv"], desc_k, max_disparity=max_disparity), 50)
         launch2 = lambda: stereo_kernel.launch_stereo_profiles(  # noqa: E731
-            cuda_build.load_library(), field_r, v_r, x0p, desc_k, De)
+            lib, field_r, uv32, desc_k, De)
         k2["launch_only_ms"] = time_ms(launch2, 50)
         k2["device_ms"] = traced_device_ms(launch2, ("stereo_profiles_kernel",))
         k2["plain_ms"] = time_ms(lambda: stereo_kernel.row_span_profiles(
-            field_r, v_r, x0p, desc_k, De), 5, 1)
-        # span pixels touched, keypoint + descriptor in, profile out;
-        # 8 xor + 8 popcount + 7 add per candidate
-        k2["bound_ms"], k2["bound_by"] = bound(
-            touched * 32 + n * (2 * 4 + 32) + n * De * 4, n * De * 23)
-    results.append(k2)
+            field_r, *stereo_kernel.span_origin(inp["uv"], h, wp, De)[1:], desc_k, De), 5, 1)
+        # span pixels touched, keypoint + descriptor in, profile + origin
+        # out; 8 xor + 8 popcount + 7 add per candidate
+        k2["bytes"] = touched * 32 + n * (2 * 4 + 32) + n * (De + 2) * 4
+        k2["operations"] = n * De * 23
+        k2["bound_ms"], k2["bound_by"] = bound(k2["bytes"], k2["operations"])
+        # its popcounts at 16 per clock and SM
+        k2["design"] = {"popcounts": 8 * n * De, "ceiling_ms": ceiling_ms(8 * n * De, 16)}
+        # the match as the tracker's re-match calls it: centre and range
+        center, rng_ = stereo_match_ranges(n, De, device)
+        mkw = dict(max_disparity=max_disparity, disparity_center=center, search_range=rng_)
+        k2m["ms"] = time_ms(lambda: stereo_kernel.stereo_match(
+            field_r, inp["uv"], desc_k, **mkw), 50)
+        launch2m = lambda: stereo_kernel.launch_stereo_match(  # noqa: E731
+            lib, field_r, uv32, desc_k, center, rng_, De, 0.5)
+        k2m["launch_only_ms"] = time_ms(launch2m, 50)
+        k2m["device_ms"] = traced_device_ms(launch2m, ("stereo_match_kernel",))
+        k2m["plain_ms"] = time_ms(lambda: stereo_kernel.stereo_match_plain(
+            field_r, inp["uv"], desc_k, **mkw), 5, 1)
+        # the whole of match_stereo around it (the float tail in PyTorch)
+        cam = synthetic.default_camera(w_raw, h, device=device)
+        valid = torch.ones(n, dtype=torch.bool, device=device)
+        k2m["match_stereo_ms"] = time_ms(lambda: match_stereo(
+            field_r, inp["uv"], desc_k, valid, cam, **mkw), 50)
+        # the span read once, keypoint, descriptor, centre and range in,
+        # six ints out; the same operations as the profile, and a compare,
+        # a mask and a min per candidate
+        k2m["bytes"] = touched * 32 + n * (2 * 4 + 32 + 2 * 4) + n * 6 * 4
+        k2m["operations"] = n * De * 30
+        k2m["bound_ms"], k2m["bound_by"] = bound(k2m["bytes"], k2m["operations"])
+        k2m["design"] = {"popcounts": 8 * n * De, "ceiling_ms": ceiling_ms(8 * n * De, 16)}
+    results += [k2, k2m]
     return results
+
+
+def stereo_match_ranges(n: int, De: int, device, seed: int = 5):
+    """A previous disparity and a search range per keypoint, as the
+    tracker's re-match gives them: centres across the span (some NaN, some
+    outside it), ranges of 0 to 40 px."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    center = rng.uniform(-10, De + 10, n).astype(np.float32)
+    center[::13] = np.nan
+    search = rng.uniform(0, 40, n).astype(np.float32)
+    search[::7] = np.round(search[::7])                 # ranges on whole pixels
+    to = lambda a: torch.from_numpy(a).to(device)       # noqa: E731
+    return to(center), to(search)
+
+
+def check_stereo_match_cases(field, uv, desc, max_disparity: int) -> dict:
+    """K2's fused match against its plain version, exactly (all six rows),
+    in the cases ``match_stereo`` meets: no range, a centre and range per
+    keypoint, a centre with the default range, a range that masks every
+    candidate, another disparity floor. Returns the keypoints that found an
+    unmasked minimum per case."""
+    import torch
+
+    from svi_mapper_tpu_torch.ops import stereo_kernel
+
+    n = uv.shape[0]
+    De = min(max_disparity, field.shape[1])
+    center, search = stereo_match_ranges(n, De, uv.device)
+    far = torch.full_like(center, -1000.0)
+    cases = {"no_range": {}, "centre_and_range": dict(disparity_center=center,
+                                                        search_range=search),
+             "centre_default_range": dict(disparity_center=center),
+             "everything_masked": dict(disparity_center=far, search_range=search),
+             "floor_3_7": dict(min_disparity=3.7)}
+    found = {}
+    for label, kw in cases.items():
+        got = stereo_kernel.stereo_match(field, uv, desc, max_disparity=max_disparity, **kw)
+        torch.cuda.synchronize()
+        want = stereo_kernel.stereo_match_plain(field, uv, desc,
+                                                max_disparity=max_disparity, **kw)
+        require(got.shape == want.shape == (6, n) and got.dtype == torch.int32,
+                f"stereo_match {label}: shape {tuple(got.shape)}")
+        rows = [r for r, a, b in zip(stereo_kernel.MATCH_ROWS, got, want)
+                if not torch.equal(a, b)]
+        require(not rows, f"stereo_match disagrees with stereo_match_plain ({label}) "
+                          f"in rows {rows}")
+        found[label] = int((want[1] < (1 << 20)).sum())
+    require(found["everything_masked"] == 0, "a range far from every candidate matched")
+    return found
+
+
+def check_stereo_match_planted(device, h: int, w: int, n: int, max_disparity: int) -> dict:
+    """K2's fused match on a RANDOM right field with ties planted: for each
+    keypoint the same pixel is written at two candidates of its span, and
+    its descriptor lies a few bits from that pixel, so two candidates share
+    the least distance: the lower index must win, as ``torch.min`` says."""
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch.ops import stereo_kernel
+
+    De = min(max_disparity, w)
+    rng = np.random.default_rng(31)
+    gen = torch.Generator(device=device).manual_seed(31)
+    field = torch.randint(-2 ** 31, 2 ** 31, (h, w, 8), generator=gen,
+                          device=device, dtype=torch.int64).to(torch.int32)
+    # keypoints whose span starts De - 1 left of them (the disparity is the
+    # index), on exact halves every fourth
+    uv = np.stack([rng.uniform(De - 1, w - 1, n), rng.uniform(0, h - 1, n)], 1)
+    uv[::4] = np.floor(uv[::4]) + 0.5
+    uv = uv.astype(np.float32)
+    u = np.clip(np.round(uv[:, 0]), 0, w - 1).astype(np.int64)
+    v = np.clip(np.round(uv[:, 1]), 0, h - 1).astype(np.int64)
+    x0 = np.clip(u - (De - 1), 0, w - De)
+    i1 = rng.integers(1, De - 2, n)
+    i2 = np.minimum(i1 + rng.integers(1, 20, n), De - 1)
+    to = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
+    px = field[to(v), to(x0 + (De - 1) - i1)]
+    field[to(v), to(x0 + (De - 1) - i2)] = px
+    flips = rng.integers(0, 20, n)
+    bit = np.arange(256)[None, :] < flips[:, None]
+    low = (bit.reshape(n, 8, 32) * (1 << np.arange(32, dtype=np.uint64))).sum(-1)
+    desc = px ^ to(low.astype(np.uint32).view(np.int32))
+    uv_t = to(uv)
+    got = stereo_kernel.stereo_match(field, uv_t, desc, max_disparity=max_disparity)
+    torch.cuda.synchronize()
+    want = stereo_kernel.stereo_match_plain(field, uv_t, desc, max_disparity=max_disparity)
+    require(torch.equal(got, want), "stereo_match disagrees with its plain version on planted ties")
+    # spans of keypoints on one row may overwrite each other's plants
+    lower = (want[0].cpu().numpy() == i1) & (want[1].cpu().numpy() == flips)
+    require(lower.mean() > 0.8, f"planted ties resolved to the lower index at {lower.mean()}")
+    return {"keypoints": n, "tie_to_lower_index": int(lower.sum())}
 
 
 def check_track_scores_planted(device, h: int, w: int, n: int) -> dict:
@@ -487,9 +702,12 @@ class TrackInputs:
         return out
 
 
-FRONTEND_KERNELS = ("track_scores", "stereo_profiles", "brief_dense_fused")
+# the kernel entries each path launches; K2's profile entry and K6's
+# matrix entry (the TPU kernels' functions) have no caller on these paths
+FRONTEND_KERNELS = ("track_scores", "stereo_match", "brief_dense_fused")
 BACKEND_KERNELS = ("schur_assemble", "schur_assemble_tiled")
-CLOSURE_KERNEL = "hamming_matrix"
+CLOSURE_KERNEL = "pool_nn_counts"
+OFF_PATH_ENTRIES = ("stereo_profiles", "hamming_matrix")
 
 KERNEL_FACTS = {
     "track_scores": dict(
@@ -511,6 +729,54 @@ KERNEL_FACTS = {
         route="cuda", source="svi_mapper_tpu_torch/csrc/hamming_matrix.cu",
         replaces="svi_mapper_tpu/ops/hamming.py:85"),
 }
+# the second entry of K2 and of K6: the same source, the same TPU kernel
+KERNEL_FACTS["stereo_match"] = KERNEL_FACTS["stereo_profiles"]
+KERNEL_FACTS["pool_nn_counts"] = KERNEL_FACTS["hamming_matrix"]
+# the kernel ptxas names for an entry at the main path's shape
+PTXAS_KERNEL = {"track_scores": "track_scores_kernel",
+                "stereo_profiles": "stereo_profiles_kernel<128>",
+                "stereo_match": "stereo_match_kernel<128>",
+                "brief_dense_fused": "brief_dense_kernel",
+                "hamming_matrix": "hamming_matrix_kernel",
+                "pool_nn_counts": "pool_nn_counts_kernel"}
+
+
+class CallCounter:
+    """While in use, counts the calls of ``module.name`` that give the
+    wrapped kernel entry work to launch (``work(*args)`` true): a path
+    launched the entry on every such call when the entry's launch count
+    equals this count."""
+
+    def __init__(self, module, name: str, work):
+        self.module, self.name, self.work, self.calls = module, name, work, 0
+
+    def __enter__(self):
+        self.wrapped = getattr(self.module, self.name)
+
+        def counting(*args, **kw):
+            self.calls += bool(self.work(*args))
+            return self.wrapped(*args, **kw)
+
+        setattr(self.module, self.name, counting)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.wrapped)
+
+
+def stereo_match_calls():
+    """Counts ``match_stereo``'s calls of the K2 match entry."""
+    from svi_mapper_tpu_torch.frontend import stereo
+
+    return CallCounter(stereo, "stereo_match", lambda field, uv, desc: uv.shape[0] > 0)
+
+
+def pool_count_calls():
+    """Counts the pool scorings that reach K6's pool entry."""
+    from svi_mapper_tpu_torch.mapping import closure
+
+    return CallCounter(closure, "pool_nn_counts",
+                       lambda q, vq, r, vr, cut: r.numel() > 0)
 
 
 def launch_counts() -> dict:
@@ -640,7 +906,7 @@ def run_main_path(device, profile: bool = False) -> tuple[dict, dict]:
     reset_launch_counts()
     frame_s = []
     outs = []
-    with TrackInputs(sample=n_single // 2) as k1_inputs:
+    with TrackInputs(sample=n_single // 2) as k1_inputs, stereo_match_calls() as k2_calls:
         for i in range(n_single):
             t0 = time.perf_counter()
             outs.append(tracker.process(imgs_l[i], imgs_r[i]))
@@ -665,6 +931,9 @@ def run_main_path(device, profile: bool = False) -> tuple[dict, dict]:
     require(ate < 0.10, f"ATE {ate} m against the exact ground truth")
     require(all(counts[k] > 0 for k in FRONTEND_KERNELS),
             f"kernel not launched: {counts}")
+    require(counts["stereo_match"] == k2_calls.calls and counts["stereo_profiles"] == 0,
+            f"{k2_calls.calls} scanline matches, {counts['stereo_match']} launches of "
+            f"the fused match, {counts['stereo_profiles']} of the profile entry")
     st = tracker.state
     tensors = [st.T_wc, st.T_wc_prev, st.T_last_keyframe, st.next_uid,
                st.frame_idx, st.instability]
@@ -697,6 +966,7 @@ def run_main_path(device, profile: bool = False) -> tuple[dict, dict]:
         "process_many_ms_per_frame": 1e3 * chunked_s / n_chunked,
         "process_many_frames_per_s": n_chunked / chunked_s,
         "launches_per_frame": {k: counts[k] / n for k in FRONTEND_KERNELS},
+        "match_stereo_calls": k2_calls.calls,
         "host_syncs_per_frame": syncs,
         # K1 on the bands this path built
         "track_scores_on_path": k1_inputs.report(),
@@ -736,7 +1006,7 @@ def profile_frames(tracker, imgs_l, imgs_r, unprofiled_ms_per_frame: float,
         # device time of the port's own kernels, per launch, as traced
         "port_kernels_device_ms": {
             name: next((r[1] / r[2] for r in rows if name in r[0]), None)
-            for name in ("track_scores_kernel", "stereo_profiles_kernel",
+            for name in ("track_scores_kernel", "stereo_match_kernel",
                          "brief_dense_kernel")},
         "top_kernels": [{"name": r[0][:80], "ms_per_frame": r[1] / n,
                          "calls_per_frame": r[2] / n} for r in rows[:12]],
@@ -1204,6 +1474,13 @@ def run_pose_graph(device, n: int = 680) -> dict:
     res = pose_graph.optimize_pose_graph(T0, edges, fixm, device=device)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    # the sums run in one order (solvers/pose_graph.py): the same graph gives
+    # the same bits on a second run
+    again = pose_graph.optimize_pose_graph(T0, edges, fixm, device=device)
+    same_bits = all(torch.equal(x, y) for x, y in zip(
+        (res.T_wc, res.chi2_initial, res.chi2_final, res.iterations),
+        (again.T_wc, again.chi2_initial, again.chi2_final, again.iterations)))
+    require(same_bits, "optimize_pose_graph gave other bits on a second run of one graph")
     T_opt = res.T_wc.cpu().numpy()
     e0, e1 = end_point_error(T_est, T_true), end_point_error(T_opt, T_true)
     chi0, chi1 = float(res.chi2_initial), float(res.chi2_final)
@@ -1216,6 +1493,7 @@ def run_pose_graph(device, n: int = 680) -> dict:
     require(float(np.abs(T_opt[0] - T_est[0]).max()) < 1e-6, "gauge pose moved")
     its = int(res.iterations)
     return dict(n=n, edges=int(edges.i.shape[0]), iterations=its, ms=1e3 * seconds,
+                same_bits_twice=same_bits,
                 ms_per_iteration=1e3 * seconds / max(its, 1),
                 chi2_initial=chi0, chi2_final=chi1,
                 end_point_err_before_m=e0, end_point_err_after_m=e1,
@@ -1443,9 +1721,15 @@ def traced_device_ms_by_kernel(fn, kernels: tuple, n: int = 50) -> dict:
 
 
 def check_closure_kernel(device) -> list[dict]:
-    """K6 at the shape ``_pool_nn_counts`` gives it (256 x 4096), ragged
-    shapes and the batched form: exactly the plain version's matrix, written
-    into a buffer pre-filled with -1 so that an entry the kernel skips shows."""
+    """K6's two entries. The matrix at the shape of the closure's exact
+    matching (256 x 4096), ragged shapes and the batched form: exactly the
+    plain version's matrix, written into a buffer pre-filled with -1 so that
+    an entry the kernel skips shows. The pool count at the shape of the
+    closure batch's pool scoring (``[8, 256, 16 x 256]``) and at each shape
+    of ``HAMMING_SHAPES`` (the M references cut into pools of up to 256),
+    with planted distances at the cutoff and one over it, invalid queries,
+    invalid references and a wholly invalid pool: exactly the plain
+    version's counts, into a buffer pre-filled with -1."""
     import torch
 
     from svi_mapper_tpu_torch.ops import cuda_build, hamming
@@ -1481,10 +1765,12 @@ def check_closure_kernel(device) -> list[dict]:
             # not a library call of the same function (PyTorch has no
             # popcount): the bit-matmul identity, unpack + one float32 matmul
             row["matmul_identity_ms"] = time_ms(lambda: hamming.hamming_mxu(a, b), 10, 2)
-            # each descriptor read once, the matrix written once; xor +
-            # popcount + add per word pair
-            row["bytes"], row["operations"] = (N + M) * 32 + N * M * 4, N * M * 8 * 3
-            row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["operations"])
+            # each descriptor read once, the matrix written once; the
+            # identity's operations (an AND or multiply and an add per pair
+            # and bit) on the tensor cores
+            row["bytes"], row["operations"] = (N + M) * 32 + N * M * 4, 2 * N * M * 256
+            row["bound_ms"], row["bound_by"], row["design"] = tensor_core_bound(
+                row["bytes"], row["operations"], 8 * N * M)
         elif B == 8:
             row["ms"] = time_ms(lambda: hamming.hamming_distance_matrix(a, b), 50)
         if "ms" in row:
@@ -1492,7 +1778,115 @@ def check_closure_kernel(device) -> list[dict]:
                 lambda: hamming.launch_hamming_matrix(lib, a, b, out=out),
                 ("hamming_matrix_kernel",))
         rows.append(row)
+
+    # the closure batch's shape first, timed
+    for i, (N, M, B) in enumerate([(256, 4096, 8)] + HAMMING_SHAPES):
+        C = -(-M // 256)
+        rows.append(check_pool_counts(device, lib, B, N, C, M // C, timed=i == 0))
     return rows
+
+
+POOL_CUTOFF = 25            # the closure's Hamming cutoff (DEFAULT_PARAMS)
+
+
+def planted_hits(P: int, Pr: int) -> int:
+    """How many planted queries of ``pool_inputs`` count in pool 0."""
+    return len(range(0, min(P, Pr), 8))
+
+
+def pool_inputs(seed: int, lead: tuple, P: int, C: int, Pr: int, device):
+    """Query and reference pools made from a seed: random descriptors, 10 %
+    of the queries and references invalid, the second pool wholly invalid
+    (C > 1), and for every other query k a reference of pool 0 planted near
+    it, from the end of the pool backwards (so the last, ragged tile and
+    references of both parities hold planted ones): ``POOL_CUTOFF`` bits
+    away with both valid (k % 8 == 0: it counts), ``POOL_CUTOFF + 1`` bits
+    away (k % 8 == 2), ``POOL_CUTOFF`` bits away with the query invalid
+    (k % 8 == 4) or the reference invalid (k % 8 == 6). Random descriptors
+    lie ~128 bits apart, so exactly ``planted_hits`` queries count."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 2 ** 32, lead + (P, 8), dtype=np.uint64).astype(np.uint32)
+    r = rng.integers(0, 2 ** 32, lead + (C, Pr, 8), dtype=np.uint64).astype(np.uint32)
+    vq = rng.random(lead + (P,)) > 0.1
+    vr = rng.random(lead + (C, Pr)) > 0.1
+    if C > 1:
+        vr[..., 1, :] = False
+    for k in range(0, min(P, Pr), 2):
+        kind = k % 8
+        bit = np.zeros(256, bool)
+        bit[rng.choice(256, POOL_CUTOFF + (kind == 2), replace=False)] = True
+        word = (bit.reshape(8, 32) * (1 << np.arange(32, dtype=np.uint64))).sum(-1)
+        r[..., 0, Pr - 1 - k, :] = q[..., k, :] ^ word.astype(np.uint32)
+        if kind != 2:
+            vq[..., k] = kind != 4
+            vr[..., 0, Pr - 1 - k] = kind != 6
+    to = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    return to(q.view(np.int32)), to(vq), to(r.view(np.int32)), to(vr)
+
+
+def check_pool_counts(device, lib, B, P: int, C: int, Pr: int, timed: bool) -> dict:
+    import torch
+
+    from svi_mapper_tpu_torch.ops import hamming
+
+    lead = () if B is None else B if isinstance(B, tuple) else (B,)
+    q, vq, r, vr = pool_inputs(43 + P + Pr, lead, P, C, Pr, device)
+    nb = 1
+    for x in lead:
+        nb *= x
+    out = torch.full((nb, C), -1, dtype=torch.int32, device=device)
+    flat = lambda t: t.reshape((nb,) + t.shape[len(lead):])  # noqa: E731
+    hamming.launch_pool_nn_counts(lib, flat(q), flat(vq), flat(r), flat(vr),
+                                  POOL_CUTOFF, out=out)
+    got = hamming.pool_nn_counts(q, vq, r, vr, POOL_CUTOFF)
+    torch.cuda.synchronize()
+    want = hamming.pool_nn_counts_plain(q, vq, r, vr, POOL_CUTOFF)
+    err = max(max_abs_err(out.reshape(want.shape), want), max_abs_err(got, want))
+    require(got.shape == lead + (C,) and got.dtype == torch.int32,
+            f"pool_nn_counts shape {tuple(got.shape)}")
+    require(torch.equal(out.reshape(want.shape), want) and torch.equal(got, want),
+            f"pool_nn_counts disagrees with its plain version at {lead} x {P} x {C} x {Pr}: "
+            f"off by {err}")
+    if C > 1:
+        require(int(want[..., 1].abs().sum()) == 0, "a wholly invalid pool counted matches")
+    row = dict(name="pool_nn_counts", B=B, P=P, C=C, Pr=Pr, max_abs_err=err,
+               matches_in_pool_0=int(want[..., 0].sum()))
+    require(bool((want[..., 0] == planted_hits(P, Pr)).all()),
+            "the planted matches were not counted as planted")
+    if timed:
+        args = (q, vq, r, vr, POOL_CUTOFF)
+        row["ms"] = time_ms(lambda: hamming.pool_nn_counts(*args), 200)
+        launch = lambda: hamming.launch_pool_nn_counts(  # noqa: E731
+            lib, flat(q), flat(vq), flat(r), flat(vr), POOL_CUTOFF, out=out)
+        row["launch_only_ms"] = time_ms(launch, 200)
+        row["device_ms"] = traced_device_ms(launch, ("pool_nn_counts_kernel",))
+        row["plain_ms"] = time_ms(lambda: hamming.pool_nn_counts_plain(*args), 5, 1)
+        # descriptors and masks read once, the counts written once; the
+        # identity's operations on the tensor cores
+        pairs = nb * P * C * Pr
+        row["bytes"] = nb * (P * 33 + C * Pr * 33 + C * 4)
+        row["operations"] = 2 * pairs * 256
+        row["bound_ms"], row["bound_by"], row["design"] = tensor_core_bound(
+            row["bytes"], row["operations"], 8 * pairs)
+    return row
+
+
+def tensor_core_bound(bytes_moved: float, operations: float, popcounts: float):
+    """K6's bound: its operations at the faster of the two tensor-core
+    rates the identity can run at, the binary MMA's as measured on this card
+    and the int8 one of the data sheet; beside it the time of the same
+    operations at each rate and of the old design's popcounts at 16 per
+    clock and SM (modelled, not measured)."""
+    b1 = binary_mma_ops_per_s()
+    t, by = bound(bytes_moved, operations, max(b1, PEAK_INT8_OPS_PER_S))
+    design = {"binary_mma_ops_per_s_measured": b1,
+              "binary_mma_ceiling_ms": operations / b1 * 1e3,
+              "int8_ceiling_ms": operations / PEAK_INT8_OPS_PER_S * 1e3,
+              "popcount_ceiling_ms": ceiling_ms(popcounts, 16)}
+    return t, by, design
 
 
 # ---------------------------------------------------------------------------
@@ -1611,9 +2005,10 @@ def run_closure_query(device) -> tuple[dict, dict]:
     closure.find_closures_batch(db, CLOSURE_QUERIES, **kw)            # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
-    t0 = time.perf_counter()
-    found = closure.find_closures_batch(db, CLOSURE_QUERIES, **kw)    # ends in a read
-    seconds = time.perf_counter() - t0
+    with pool_count_calls() as scorings:
+        t0 = time.perf_counter()
+        found = closure.find_closures_batch(db, CLOSURE_QUERIES, **kw)    # ends in a read
+        seconds = time.perf_counter() - t0
     counts = launch_counts()
     syncs = count_host_syncs(
         lambda: closure.find_closures_batch(db, CLOSURE_QUERIES, **kw))
@@ -1629,7 +2024,8 @@ def run_closure_query(device) -> tuple[dict, dict]:
             require(cands[0].inliers >= 150, f"query {q}: {cands[0].inliers} inliers")
         else:
             require(refs == [], f"query {q} (decoy or plain): accepted {refs}")
-    require(counts[CLOSURE_KERNEL] > 0, f"kernel not launched: {counts}")
+    require(counts[CLOSURE_KERNEL] == scorings.calls > 0,
+            f"{scorings.calls} pool scorings, {counts[CLOSURE_KERNEL]} launches: {counts}")
 
     # the same database through the port on the CPU (plain versions)
     t0 = time.perf_counter()
@@ -1661,7 +2057,8 @@ def run_closure_query(device) -> tuple[dict, dict]:
         "max_T_qr_err": worst, "T_qr_tolerance": T_QR_TOL,
         "fill_seconds": fill_s, "ms_per_batch": 1e3 * seconds,
         "host_syncs_per_batch": syncs,
-        "hamming_matrix_launches_per_batch": counts[CLOSURE_KERNEL],
+        "pool_nn_counts_launches_per_batch": counts["pool_nn_counts"],
+        "hamming_matrix_launches_per_batch": counts["hamming_matrix"],
         "gpu_vs_cpu": {"discrete_outputs_equal": True, "max_T_qr_diff": worst_T,
                        "max_bow_vector_diff": vec_diff, "cpu_seconds": cpu_s},
     }
@@ -1744,7 +2141,8 @@ def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
     outs = []
     route = (contextlib.nullcontext() if schur_kernels else
              mock.patch.object(ba, "schur_kernel_auto", lambda *a, **k: False))
-    with route, TrackInputs(sample=LOOP_FRAMES // 2) as k1_inputs:
+    with route, TrackInputs(sample=LOOP_FRAMES // 2) as k1_inputs, \
+            stereo_match_calls() as k2_calls, pool_count_calls() as scorings:
         syncs = count_host_syncs(lambda: outs.extend(slam.process_many(
             imgs_l[:n_sync], imgs_r[:n_sync], chunk=LOOP_CHUNK)))
         outs.extend(slam.process_many(imgs_l[n_sync:], imgs_r[n_sync:], chunk=LOOP_CHUNK))
@@ -1825,6 +2223,7 @@ def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
             for k in ("kf_db_add", "kf_closure", "kf_backend", "kf_ba", "kf_pose_graph",
                       "kf_total")},
         "launches": counts,
+        "match_stereo_calls": k2_calls.calls, "pool_scorings": scorings.calls,
         "host_syncs_counted_over_chunks": LOOP_SYNC_CHUNKS,
         "host_syncs_per_chunk": syncs / LOOP_SYNC_CHUNKS,
         "host_syncs_per_frame_in_chunks": syncs / n_sync,
@@ -1849,6 +2248,10 @@ def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
     require(max(closure_err) < LOOP_CLOSURE_ERR_M,
             f"accepted closures off by {closure_err} m from the ground truth")
     require(all(counts[k] > 0 for k in on_path), f"kernel not launched: {counts}")
+    require(counts["stereo_match"] == k2_calls.calls
+            and counts[CLOSURE_KERNEL] == scorings.calls,
+            f"{k2_calls.calls} scanline matches and {scorings.calls} pool scorings "
+            f"against launches {counts}")
     require(k5_ran == (schur_kernels and any(name == "schur_assemble_tiled"
                                              for name, _, _ in by_shape)),
             f"K5 launches {counts['schur_assemble_tiled']} against windows {windows}")
@@ -1890,17 +2293,21 @@ def main() -> int:
     small = check_kernels(device, h=75, w_raw=203, n=37, max_disparity=48, timed=False)
     emit({"phase": "kernels_small", "shape": [75, 203],
           "max_abs_err": {k["name"]: k["max_abs_err"] for k in small},
-          "track_scores_planted": small[1]["planted"]})
+          "track_scores_planted": small[1]["planted"],
+          "stereo_match": {k: small[3][k] for k in ("cases", "planted")}})
     narrow = check_kernels(device, h=64, w_raw=96, n=16, max_disparity=128, timed=False)
     emit({"phase": "kernels_narrow", "shape": [64, 96],
-          "max_abs_err": {k["name"]: k["max_abs_err"] for k in narrow}})
+          "max_abs_err": {k["name"]: k["max_abs_err"] for k in narrow},
+          "stereo_match": {k: narrow[3][k] for k in ("cases", "planted")}})
     full = check_kernels(device, h=H, w_raw=W_RAW, n=N_LANDMARKS,
                          max_disparity=MAX_DISPARITY, timed=True)
+    front_build = {src: ptxas_report(src, "kernel") for src in
+                   ("brief_dense.cu", "track_scores.cu", "stereo_profiles.cu")}
     emit({"phase": "kernels_full", "shape": [H, W_RAW],
           "max_abs_err": {k["name"]: k["max_abs_err"] for k in full},
           "track_scores_planted": full[1]["planted"],
-          "build": {"brief_dense.cu": ptxas_report("brief_dense.cu", "kernel"),
-                    "track_scores.cu": ptxas_report("track_scores.cu", "kernel")},
+          "stereo_match": {k: full[3][k] for k in ("cases", "planted")},
+          "build": front_build,
           "sass_shared_loads": {"brief_dense_kernel": sass_count("brief_dense_kernel", "LDS")},
           # modelled, not measured: the loads or popcounts the design issues
           # and the time they take at one issue rate per SM and clock
@@ -1914,9 +2321,20 @@ def main() -> int:
                                    for r in schur_build),
             f"a kernel of schur_assemble.cu spills: {schur_build}")
 
+    require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                for r in front_build["stereo_profiles.cu"]),
+            f"a kernel of stereo_profiles.cu spills: {front_build['stereo_profiles.cu']}")
+
     closure_rows = check_closure_kernel(device)
-    emit({"phase": "kernels_closure", "shapes": closure_rows,
-          "build": ptxas_report("hamming_matrix.cu", "kernel")})
+    hamming_build = ptxas_report("hamming_matrix.cu", "kernel")
+    emit({"phase": "kernels_closure",
+          "shapes": [{k: v for k, v in r.items() if k != "design"} for r in closure_rows],
+          "build": hamming_build,
+          # modelled, not measured: the time the timed rows' operations take
+          # at each rate (the binary MMA's rate itself is measured)
+          "design": {r["name"]: r["design"] for r in closure_rows if "design" in r}})
+    require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in hamming_build),
+            f"a kernel of hamming_matrix.cu spills: {hamming_build}")
 
     # 4. the card against the CPU on a small sequence, a small BA window and
     #    a small pose graph (the closure query holds its own comparison)
@@ -1945,41 +2363,54 @@ def main() -> int:
     emit({"phase": "kernels_backend_loop_shapes",
           "checked_in_kernel_phase": [list(s) for s in LOOP_BA_SHAPES],
           "checked_after_the_loop": [at_shape[shape] for shape in late]})
-    # launches of each kernel on the path that is its own: the front-end, the
-    # map optimisation on generated windows, and the whole system's loop (the
-    # closure kernel's; the loop's counts of all six go along)
-    counts = {**{k: counts[k] for k in FRONTEND_KERNELS},
+    # launches of each kernel entry on the path that is its own: the
+    # front-end, the map optimisation on generated windows, and the whole
+    # system's loop (the closure entries'; the loop's counts of all eight go
+    # along). The two entries no path calls count 0 there.
+    counts = {**{k: counts[k] for k in FRONTEND_KERNELS + ("stereo_profiles",)},
               **{k: backend_counts[k] for k in BACKEND_KERNELS},
-              CLOSURE_KERNEL: loop_counts[CLOSURE_KERNEL]}
+              **{k: loop_counts[k] for k in (CLOSURE_KERNEL, "hamming_matrix")}}
 
     # the kernels line: each kernel at the largest shape its main path gives
     # it; K4 and K5 also at each window shape of the loop (the front-end
     # kernels and K6 have the same shapes there)
     at_width = {"schur_assemble": at_shape[("schur_assemble", 32, BA_LANDMARKS)],
                 "schur_assemble_tiled": at_shape[("schur_assemble_tiled", 128, BA_LANDMARKS)],
-                CLOSURE_KERNEL: closure_rows[0]}
+                "hamming_matrix": closure_rows[0],
+                CLOSURE_KERNEL: next(r for r in closure_rows if r["name"] == CLOSURE_KERNEL)}
+    # registers and spills of each entry's kernel at the path's shape, as
+    # ptxas printed them during this run's build
+    built = {r["kernel"]: r for rows in (*front_build.values(), hamming_build,
+                                         schur_build) for r in rows}
     timed_keys = ("ms", "launch_only_ms", "device_ms", "device_ms_by_kernel", "plain_ms",
                   "bound_ms", "bound_by", "max_abs_err", "rel_err_vs_plain", "bytes",
                   "flops", "product_flops_upper", "product_matmul_ms")
     kernels = []
-    for k in full + [at_width[n] for n in BACKEND_KERNELS + (CLOSURE_KERNEL,)]:
+    for k in full + [at_width[n] for n in BACKEND_KERNELS + ("hamming_matrix",
+                                                               CLOSURE_KERNEL)]:
         row = {
             "name": k["name"], **KERNEL_FACTS[k["name"]],
             "launches": counts[k["name"]], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
-            # no single PyTorch call computes any of the six functions
+            # no single PyTorch call computes any of the eight functions
             "library_ms": None,
             "launches_slam_loop": loop_counts[k["name"]],
             "launches_closure_query": query_counts[k["name"]],
+            "on_path": k["name"] not in OFF_PATH_ENTRIES,
         }
         for extra in ("launch_only_ms", "rel_err_vs_plain", "K", "L", "flops",
                       "product_flops_upper",
                       "device_ms_by_kernel", "product_matmul_ms", "N", "M",
                       "matmul_identity_ms", "bytes", "operations", "device_ms",
-                      "pixels_scored_per_landmark"):
+                      "pixels_scored_per_landmark",
+                      "match_stereo_ms", "B", "P", "C", "Pr"):
             if extra in k:
                 row[extra] = k[extra]
+        ptx = built.get(PTXAS_KERNEL.get(k["name"], ""))
+        if ptx is not None:
+            row["ptxas"] = {key: ptx.get(key) for key in ("registers", "spill_stores",
+                                                          "spill_loads")}
         if k["name"] == "track_scores":
             # the same count on the bands the whole system's loop built
             row["pixels_scored_per_landmark_slam_loop"] = \

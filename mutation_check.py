@@ -1,6 +1,6 @@
 """Does ``chip_smoke.py`` catch a wrong kernel? What does the Schur product
-kernel's 8-keyframe instance buy, and where does its time go? And how do
-K1, K3, K4 and K5 compare with the parent commit's?
+kernel's 8-keyframe instance buy, and where does its time go? How do K1,
+K2, K3 and K6 and their callers compare with the parent commit's?
 
     python3 mutation_check.py [fault ...]
     python3 mutation_check.py --instances
@@ -14,12 +14,14 @@ A developer's check, run from the repository root; needs one CUDA card and
 a temporary directory, the fault is planted in the copy's source, and a
 check of ``chip_smoke`` runs in a process of its own: for
 ``csrc/schur_assemble.cu`` ``check_backend_kernels`` (every shape of the
-``kernels_backend`` phase), for ``csrc/hamming_matrix.cu`` (the
-``hamming_*`` faults) ``check_closure_kernel``, for ``csrc/brief_dense.cu``
-and its ``csrc/brief_pattern.cuh`` (``brief_*``) and ``csrc/track_scores.cu``
-(``track_*``) ``check_kernels`` at the three shapes of the ``kernels_*``
-phases. A fault is *caught* when that process fails. The unchanged copies
-(``control``, ``hamming_control``, ``front_control``) must pass. Prints one
+``kernels_backend`` phase), for ``csrc/hamming_matrix.cu`` (the ``pool_*``
+faults) ``check_closure_kernel``, for ``csrc/brief_dense.cu`` and its
+``csrc/brief_pattern.cuh`` (``brief_*``), ``csrc/track_scores.cu``
+(``track_*``), ``csrc/stereo_profiles.cu`` (``stereo_*``) and the shared
+``csrc/round_pixel.cuh`` (``round_*``) ``check_kernels`` at the three
+shapes of the ``kernels_*`` phases. A fault is *caught* when that process
+fails. The unchanged copies (``control``, ``pool_control``,
+``stereo_control``, ``front_control``) must pass. Prints one
 JSON line per fault and exits non-zero if a control fails or a fault that
 changes the result goes uncaught.
 
@@ -39,19 +41,17 @@ the result and must be caught:
   (the weight is 0, so every Jacobian row is), and adding +-0 to a sum
   that starts at +0 changes no bit (beside it: a flag that skips observed
   tiles);
-* in the Hamming kernel, b-rows past the ragged edge staged as ones instead
-  of zeros: their columns are never written (beside it: the edge test off
-  by one where the column is written);
 * in K1, floor and ceiling division truncating toward zero instead: that
   only ever moves an interval's end outward, by one column, and a pixel
   listed in excess is scored and rejected by the tiers as the plain version
   rejects it (beside it: the band interval one column short at either end;
   ``tests/test_torch_track_intervals.py`` holds the Python restatement to
   the exact union);
-* in K1, the prediction clamped after the cast to int instead of before:
-  the card's float-to-int conversion saturates, so both give the same pixel
-  (beside it: the clamp removed). On the CPU a wrapping cast would differ;
-  that is why the plain version clamps in float.
+* in the rounding (K1 and K2), the coordinate clamped after the cast to
+  int instead of before: the card's float-to-int conversion saturates, so
+  both give the same pixel (beside it: the clamp removed). On the CPU a
+  wrapping cast would differ; that is why the plain version clamps in
+  float.
 
 K1 folds window position 0 (key ``4096 * 4096``) into its reduction rather
 than the first position its listing leaves out: when nothing is accepted,
@@ -60,15 +60,20 @@ returns position 0 whatever the listing, so taking position 0 for the
 first unlisted one is the kernel's own rule, not a fault. Planted beside
 it: the fold dropped, and the fold at position 1.
 
-The Hamming faults (``hamming_*``): one word dropped from the sum, OR for
-XOR, the matrix written transposed, the ragged edge off by one on either
-axis, a shift that loses the sign bit before the popcount, and the batch
-offset dropped. The K3 faults (``brief_*``): one pattern entry off by one
-in the header, an FMA in the blur, two bits of a word swapped, one of a
-thread's stacked pixels reading its neighbour's row. The K1 faults
-(``track_*``): the band interval one column short at either end, the box
-as ``|dx| <= 7``, the fold dropped or at position 1, round half up in the
-kernel's rounding, the float clamp removed.
+The K6 faults (``pool_*``): a norm dropped, a wrong sign in the identity,
+the minimum taken over the wrong pool, the references' or the queries'
+valid mask ignored, the last ragged tile dropped in the pool count and in
+the matrix, a column's norm taken from its neighbour's lane (matrix) or
+slot (pool count). The K2 faults (``stereo_*``): a tie to the higher index,
+the range mask dropped, ``dm`` and ``dp`` swapped, the span origin off by
+one; and in the shared rounding (``round_*``) the map of non-finite
+coordinates dropped (NaN still reads 0, since ``fmaxf`` drops it; +-inf
+then reads the edge), round half up, the float clamp removed. The K3 faults
+(``brief_*``): one pattern entry off by one in the header, an FMA in the
+blur, two bits of a word swapped, one of a thread's stacked pixels reading
+its neighbour's row. The K1 faults (``track_*``): the band interval one
+column short at either end, the box as ``|dx| <= 7``, the fold dropped or
+at position 1.
 
 The Schur faults: the in-front test dropped, the robust branch never
 taken, two W rows swapped, the C operand's rows reversed, the split offset
@@ -88,14 +93,18 @@ and 16 keyframes in the unchanged copy and in a copy whose tiling
 (``ops/ba_kernel.py``) sends every window to the 16-keyframe instance of
 the product kernel: what the 8-keyframe instance is worth.
 
-``--versus-parent`` times K1 and K3 (``chip_smoke.check_kernels`` at
+``--versus-parent`` times K1, K2 and K3 (``chip_smoke.check_kernels`` at
 376 x 1241, 1024 landmarks, timed: wrapper ``ms``, ``launch_only_ms``,
-``device_ms``) and K4 and K5 as a caller meets them (the wrapper's ``ms``
-and the device time of every kernel the call launches, PyTorch's
-included: the whole function) at 32 x 4096 and 8 x 1024 (K4) and at
-128 x 4096, 64 x 4096 and 64 x 1024 (K5), in another commit's tree and in
-this one, in turns (parent, this, this, parent), each in a process of its
-own, and prints the card's name and power limit beside them. The other tree is unpacked first
+``device_ms``), and K2 and K6 as their callers meet them (``ms``, the
+host's time per call without a synchronisation, and the device time and
+count of every kernel the call launches, PyTorch's included):
+``stereo_profiles`` and ``match_stereo`` with and without a search range
+at 1024 keypoints, the Hamming matrix at 256 x 4096, the closure's pool
+scoring at ``[8, 256, 16 x 256]``; and the closure batch of
+``closure_query`` (five runs, host reads) and the N = 680 pose graph
+(three runs), in another commit's tree and in this one, in turns (parent,
+this, this, parent), each in a process of its own, and prints the card's
+name and power limit beside them. The other tree is unpacked first
 into the ignored ``_parent/`` (HEAD is the parent of uncommitted work):
 
     rm -rf _parent && mkdir _parent && git archive HEAD | tar -x -C _parent
@@ -138,6 +147,8 @@ PARENT = REPO / "_parent"
 CSRC = Path("svi_mapper_tpu_torch") / "csrc"
 SOURCE = CSRC / "schur_assemble.cu"
 HAMMING_SOURCE = CSRC / "hamming_matrix.cu"
+STEREO_SOURCE = CSRC / "stereo_profiles.cu"
+ROUND_HEADER = CSRC / "round_pixel.cuh"
 BRIEF_SOURCE = CSRC / "brief_dense.cu"
 PATTERN_HEADER = CSRC / "brief_pattern.cuh"
 TRACK_SOURCE = CSRC / "track_scores.cu"
@@ -204,29 +215,6 @@ FAULTS = {
     "hll_inv_written_3_percent_off": (
         "Hll_inv[(size_t)l * 9 + i] = h[i];",
         "Hll_inv[(size_t)l * 9 + i] = (i == 1 || i == 3) ? 1.03f * h[i] : h[i];", True),
-    "hamming_control": (None, None, False),
-    "hamming_word_dropped": (
-        "for (int w = 0; w < WORDS; ++w)\n                d += __popc(",
-        "for (int w = 0; w < WORDS - 1; ++w)\n                d += __popc(", True),
-    "hamming_or_for_xor": (
-        "d += __popc((unsigned)(ra[w] ^ rb[j][w]));",
-        "d += __popc((unsigned)(ra[w] | rb[j][w]));", True),
-    "hamming_written_transposed": (
-        "if (m < M) out[(size_t)n * M + m] = d;",
-        "if (m < M) out[(size_t)m * N + n] = d;", True),
-    "hamming_column_edge_off_by_one": (
-        "if (m < M) out[(size_t)n * M + m] = d;",
-        "if (m < M - 1) out[(size_t)n * M + m] = d;", True),
-    "hamming_row_edge_off_by_one": (
-        "if (n >= N) break;", "if (n >= N - 1) break;", True),
-    "hamming_sign_bit_shifted_out": (
-        "d += __popc((unsigned)(ra[w] ^ rb[j][w]));",
-        "d += __popc((unsigned)(ra[w] ^ rb[j][w]) << 1);", True),
-    "hamming_batch_offset_dropped": (
-        "b += (size_t)z * M * WORDS;", "b += 0;", True),
-    "hamming_edge_rows_staged_as_ones": (
-        "b[(size_t)(m0 + col) * WORDS + w] : 0;",
-        "b[(size_t)(m0 + col) * WORDS + w] : -1;", False),
     "front_control": (None, None, False),
     "brief_pattern_entry_off_by_one": (
         "{  2,   7,   4,   6},  // 0\n", "{  3,   7,   4,   6},  // 0\n", True),
@@ -252,15 +240,58 @@ FAULTS = {
         "int best = BIG_K * BIG_K;", "int best = 0x7fffffff;", True),
     "track_fold_at_position_1": (
         "int best = BIG_K * BIG_K;", "int best = BIG_K * BIG_K + 1;", True),
-    "track_round_half_up": (
+    "round_half_up": (
         "a = fminf(fmaxf(rintf(a), 0.0f), (float)hi);",
         "a = fminf(fmaxf(floorf(a + 0.5f), 0.0f), (float)hi);", True),
-    "track_float_clamp_removed": (
+    "round_float_clamp_removed": (
         "a = fminf(fmaxf(rintf(a), 0.0f), (float)hi);\n    return (int)a;",
         "return (int)rintf(a);", True),
-    "track_clamp_after_cast": (
+    "round_clamp_after_cast": (
         "a = fminf(fmaxf(rintf(a), 0.0f), (float)hi);\n    return (int)a;",
         "return min(max((int)rintf(a), 0), hi);", False),
+    "round_no_nan_map": (
+        "a = isfinite(a) ? a : 0.0f;\n", "", True),
+    "stereo_control": (None, None, False),
+    "stereo_tie_to_higher_index": (
+        ("((unsigned)min(v, KEY_BIG) << 16) | (unsigned)i);",
+         "const int best = (int)(best_key & 0xffffu);"),
+        ("((unsigned)min(v, KEY_BIG) << 16) | (unsigned)(0xffff - i));",
+         "const int best = 0xffff - (int)(best_key & 0xffffu);"), True),
+    "stereo_range_mask_dropped": (
+        "(!ranged || fabsf(d - c) <= r);", "true;", True),
+    "stereo_dm_dp_swapped": (
+        ("out[2 * K + k] = m[max(best - 1, 0)];", "out[3 * K + k] = m[min(best + 1, De - 1)];"),
+        ("out[3 * K + k] = m[max(best - 1, 0)];", "out[2 * K + k] = m[min(best + 1, De - 1)];"),
+        True),
+    "stereo_origin_off_by_one": (
+        "s.x0 = min(max(s.u_r - (De - 1), 0), W - De);",
+        "s.x0 = min(max(s.u_r - De, 0), W - De);", True),
+    "pool_control": (None, None, False),
+    "pool_norm_dropped": (
+        "d[j][0] = q.norm0 + nb[j][0] - 2 * acc[j][0];",
+        "d[j][0] = q.norm0 - 2 * acc[j][0];", True),
+    "pool_identity_sign": (
+        "d[j][3] = q.norm1 + nb[j][1] - 2 * acc[j][3];",
+        "d[j][3] = q.norm1 + nb[j][1] + 2 * acc[j][3];", True),
+    "pool_min_over_wrong_pool": (
+        "r_desc += pool * Pr * 2;", "r_desc += ((size_t)z * C + (c + 1) % C) * Pr * 2;", True),
+    "pool_reference_valid_ignored": (
+        "st.valid[r] = r0 + r < Pr && r_valid[r0 + r] != 0;", "st.valid[r] = r0 + r < Pr;",
+        True),
+    "pool_query_valid_ignored": (
+        "const bool hit0 = quad_lead && p0 < P && q_valid[p0] && min0 <= cutoff;",
+        "const bool hit0 = quad_lead && p0 < P && min0 <= cutoff;", True),
+    "pool_last_ragged_tile_dropped": (
+        "for (int n0 = 0; n0 < width; n0 += 8 * NT) {",
+        "for (int n0 = 0; n0 + 8 * NT <= width; n0 += 8 * NT) {", True),
+    "pool_matrix_last_ragged_tile_dropped": (
+        "const dim3 grid((M + 8 * NT - 1) / (8 * NT),", "const dim3 grid(M / (8 * NT),", True),
+    "pool_matrix_column_norm_from_wrong_lane": (
+        "nb[j][1] = __shfl_sync(FULL, f.norm, 8 * t + 4);",
+        "nb[j][1] = __shfl_sync(FULL, f.norm, 8 * t);", True),
+    "pool_column_norm_of_neighbour": (
+        "nb[j][1] = st.norm[n0 + 8 * j + 2 * t + 1];", "nb[j][1] = st.norm[n0 + 8 * j + 2 * t];",
+        True),
 }
 
 # the product kernel with a phase patched out: the multiply-adds alone
@@ -293,7 +324,9 @@ FRONT_CHECK = ("import torch, chip_smoke as c; d = torch.device('cuda', 0)\n"
                "print('PASSED')")
 
 # fault-name prefix -> (the source it is planted in, the check that must fail)
-SOURCES = [("hamming_", HAMMING_SOURCE, HAMMING_CHECK),
+SOURCES = [("pool_", HAMMING_SOURCE, HAMMING_CHECK),
+           ("stereo_", STEREO_SOURCE, FRONT_CHECK),
+           ("round_", ROUND_HEADER, FRONT_CHECK),
            ("brief_pattern_", PATTERN_HEADER, FRONT_CHECK),
            ("brief_", BRIEF_SOURCE, FRONT_CHECK),
            ("track_", TRACK_SOURCE, FRONT_CHECK),
@@ -354,30 +387,34 @@ for K, L in ((128, 4096), (32, 4096)):
 print('PRODUCT_MS ' + json.dumps(out))
 """
 
-# K4 and K5 as a caller meets them: the wrapper's time, and the device time
-# of every kernel it launches (the whole function, the PyTorch finish of an
-# earlier design included), at the shapes of the map optimisation and of
-# the loop. Runs in any tree whose chip_smoke.py has ba_problem and
-# time_ms.
-TIME_BACKEND = """
-import json, torch, chip_smoke as c
+# K2 and K6 as their callers meet them, and the paths around them: the
+# wrapper's time, the host's time per call (enqueue, no synchronisation) and
+# the device time of every kernel the call launches, PyTorch's included, at
+# the main path's shapes; the closure batch of chip_smoke's closure_query
+# and the N = 680 pose graph. Runs in any tree whose chip_smoke.py has
+# kernel_inputs, hamming_inputs, closure_keyframes, fill_closure_database,
+# count_host_syncs, run_pose_graph and time_ms.
+TIME_CALLERS = """
+import json, time, numpy as np, torch, chip_smoke as c
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
-from svi_mapper_tpu_torch.ops import ba_kernel
+from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
+from svi_mapper_tpu_torch.frontend.stereo import match_stereo
+from svi_mapper_tpu_torch.io import synthetic
+from svi_mapper_tpu_torch.mapping import closure
+from svi_mapper_tpu_torch.models.slam import closure_kwargs
+from svi_mapper_tpu_torch.ops import descriptors, hamming, stereo_kernel
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device('cuda', 0)
-out = {}
-for name, K, L in (('schur_assemble', 32, 4096), ('schur_assemble', 8, 1024),
-                   ('schur_assemble_tiled', 128, 4096),
-                   ('schur_assemble_tiled', 64, 4096),
-                   ('schur_assemble_tiled', 64, 1024)):
-    fn = getattr(ba_kernel, name)
-    p = c.ba_problem(K, L, seed=3)
-    args = [torch.from_numpy(a).to(dev) for a in
-            (p['T'], p['X0'], p['obs'], p['mask'].astype('float32'))]
-    kw = dict(zip(('fx', 'fy', 'cx', 'cy', 'bq'), p['intr']))
-    call = lambda: fn(*args, 1e-3, **kw)
-    row = {'ms': c.time_ms(call, 50)}
-    call()
+
+
+def measure(call, n=50):
+    row = {'ms': c.time_ms(call, n)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    row['host_ms'] = (time.perf_counter() - t0) / n * 1e3
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(20):
@@ -387,10 +424,53 @@ for name, K, L in (('schur_assemble', 32, 4096), ('schur_assemble', 8, 1024),
           and e.device_type == torch.autograd.DeviceType.CUDA]
     row['device_ms'] = sum(e.device_time_total for e in ev) / 1e3 / 20
     row['kernels_per_call'] = sum(e.count for e in ev) / 20
-    row['by_kernel'] = {e.key[:60]: e.device_time_total / 1e3 / 20 for e in
-                        sorted(ev, key=lambda e: -e.device_time_total)[:6]}
-    out[f'{name} {K}x{L}'] = row
-print('BACKEND_MS ' + json.dumps(out))
+    return row
+
+
+out = {}
+inp = c.kernel_inputs(17, c.H, c.W_RAW, c.N_LANDMARKS, dev)
+wp = -(-c.W_RAW // 16) * 16
+ext = lambda im: F.pad(im[None, None], (0, wp - c.W_RAW, 0, 0), mode='replicate')[0, 0].contiguous()
+field_l = descriptors.brief_dense_fused(ext(inp['img_l']))
+field_r = descriptors.brief_dense_fused(ext(inp['img_r']))
+desc = descriptors.brief_at(field_l, inp['uv_near'])
+uv = inp['uv']
+cam = synthetic.default_camera(c.W_RAW, c.H, device=dev)
+valid = torch.ones(c.N_LANDMARKS, dtype=torch.bool, device=dev)
+rng = np.random.default_rng(5)
+center = torch.from_numpy(rng.uniform(0, 128, c.N_LANDMARKS).astype(np.float32)).to(dev)
+search = torch.from_numpy(rng.uniform(0, 40, c.N_LANDMARKS).astype(np.float32)).to(dev)
+out['stereo_profiles'] = measure(lambda: stereo_kernel.stereo_profiles(
+    field_r, uv, desc, max_disparity=c.MAX_DISPARITY))
+out['match_stereo'] = measure(lambda: match_stereo(field_r, uv, desc, valid, cam))
+out['match_stereo_ranged'] = measure(lambda: match_stereo(
+    field_r, uv, desc, valid, cam, disparity_center=center, search_range=search))
+
+a, b, _ = c.hamming_inputs(297, 256, 4096, dev)
+out['hamming_matrix'] = measure(lambda: hamming.hamming_distance_matrix(a, b), 200)
+# the closure batch's pool scoring: 8 query pools against 16 pools of 256
+q = torch.from_numpy(rng.integers(0, 2 ** 32, (8, 256, 8), dtype=np.uint64)
+                     .astype(np.uint32).view(np.int32)).to(dev)
+r = torch.from_numpy(rng.integers(0, 2 ** 32, (8, 16, 256, 8), dtype=np.uint64)
+                     .astype(np.uint32).view(np.int32)).to(dev)
+vq = torch.from_numpy(rng.random((8, 256)) > 0.1).to(dev)
+vr = torch.from_numpy(rng.random((8, 16, 256)) > 0.1).to(dev)
+out['pool_scoring'] = measure(lambda: closure._pool_nn_counts(q, vq, r, vr, 25), 200)
+
+keyframes, _ = c.closure_keyframes(seed=13)
+db = c.fill_closure_database(keyframes, dev)
+kw = closure_kwargs(DEFAULT_PARAMS)
+closure.find_closures_batch(db, c.CLOSURE_QUERIES, **kw)
+batch_ms = []
+for _ in range(5):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    closure.find_closures_batch(db, c.CLOSURE_QUERIES, **kw)      # ends in a read
+    batch_ms.append((time.perf_counter() - t0) * 1e3)
+out['closure_batch'] = {'ms': batch_ms, 'host_syncs': c.count_host_syncs(
+    lambda: closure.find_closures_batch(db, c.CLOSURE_QUERIES, **kw))}
+out['pose_graph'] = {'ms': [c.run_pose_graph(dev)['ms'] for _ in range(3)]}
+print('CALLERS_MS ' + json.dumps(out))
 """
 
 
@@ -465,7 +545,9 @@ def run_fault(name: str) -> dict:
     old, new, changes = FAULTS[name]
     source, check = next((src, chk) for prefix, src, chk in SOURCES
                          if name.startswith(prefix))
-    proc = run_in_copy(check, [] if old is None else [(old, new)], source)
+    patches = ([] if old is None else list(zip(old, new)) if isinstance(old, tuple)
+               else [(old, new)])
+    proc = run_in_copy(check, patches, source)
     passed = proc.returncode == 0 and "PASSED" in proc.stdout
     last = (proc.stderr.strip().splitlines() or [""])[-1]
     return {"fault": name, "changes_result": changes, "caught": not passed,
@@ -524,23 +606,24 @@ def nvidia_smi() -> str:
 
 
 def versus_parent() -> int:
-    """K1 and K3, and K4 and K5 as callers meet them, of the parent's tree
-    and of this one, in turns."""
+    """K1, K2 and K3, K2 and K6 as their callers meet them, the closure
+    batch and the pose graph, of the parent's tree and of this one, in
+    turns."""
     if not (PARENT / "chip_smoke.py").exists():
         print(f"no parent tree in {PARENT} (see the module's docstring)", file=sys.stderr)
         return 1
     row = {"phase": "versus_parent", "nvidia_smi": nvidia_smi()}
     for name, tree in (("parent", PARENT), ("this", REPO), ("this_again", REPO),
                        ("parent_again", PARENT)):
-        proc = subprocess.run([sys.executable, "-c", TIME_FRONT + TIME_BACKEND],
+        proc = subprocess.run([sys.executable, "-c", TIME_FRONT + TIME_CALLERS],
                               cwd=tree, text=True, capture_output=True, timeout=900)
         lines = {ln.split(" ", 1)[0]: json.loads(ln.split(" ", 1)[1])
                  for ln in proc.stdout.splitlines()
-                 if ln.startswith(("FRONT_MS ", "BACKEND_MS "))}
+                 if ln.startswith(("FRONT_MS ", "CALLERS_MS "))}
         if proc.returncode != 0 or len(lines) != 2:
             print(proc.stderr[-2000:], file=sys.stderr)
             return 1
-        row[name] = {"front": lines["FRONT_MS"], "backend": lines["BACKEND_MS"]}
+        row[name] = {"front": lines["FRONT_MS"], "callers": lines["CALLERS_MS"]}
     print(json.dumps(row), flush=True)
     return 0
 

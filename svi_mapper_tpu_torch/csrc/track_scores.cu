@@ -7,11 +7,12 @@
 //
 // One block of four warps per landmark. Each thread rounds the landmark's
 // prediction (nan_to_num, round half to even, clamp in float, then the
-// cast: the rule of ops/track_kernel.py:window_origin) and clamps the 41x57
-// window's origin. Only the tier-1 box (|dx|, |dy| <= 8) and the tier-2
-// band (|c0q + nxq*dx + nyq*dy| <= 640 within the (ru, rv) reach) accept a
-// pixel; everywhere else the score is 4096 whatever the descriptor. So in
-// the first warp each lane takes a window row (two passes for 41 rows),
+// cast: round_pixel.cuh, the rule of ops/track_kernel.py:window_origin)
+// and clamps the 41x57 window's origin. Only the tier-1 box (|dx|,
+// |dy| <= 8) and the tier-2 band (|c0q + nxq*dx + nyq*dy| <= 640 within
+// the (ru, rv) reach) accept a pixel; everywhere else the score is 4096
+// whatever the descriptor. So in the first warp each lane takes a window
+// row (two passes for 41 rows),
 // works out the row's column interval of the box and of the band
 // (ops/track_kernel.py:tier_row_intervals restates this in Python), merges
 // them where they touch, and a warp scan of the interval lengths lists the
@@ -42,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "round_pixel.cuh"
+
 namespace {
 
 constexpr int WIN_W = 57;
@@ -61,13 +64,6 @@ __device__ __forceinline__ int hamming8(const uint4& p0, const uint4& p1,
     return __popc(p0.x ^ d0.x) + __popc(p0.y ^ d0.y) + __popc(p0.z ^ d0.z) +
            __popc(p0.w ^ d0.w) + __popc(p1.x ^ d1.x) + __popc(p1.y ^ d1.y) +
            __popc(p1.z ^ d1.z) + __popc(p1.w ^ d1.w);
-}
-
-// the nearest pixel index in [0, hi]: NaN and +-inf read 0
-__device__ __forceinline__ int pixel_index(float a, int hi) {
-    a = isfinite(a) ? a : 0.0f;
-    a = fminf(fmaxf(rintf(a), 0.0f), (float)hi);
-    return (int)a;
 }
 
 // a / b rounded toward -inf and toward +inf (b != 0); C++ `/` truncates

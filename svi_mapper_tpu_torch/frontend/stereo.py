@@ -6,8 +6,9 @@ RIGHT, extracts BRIEF for each, and brute-force Hamming-matches (cutoff 100,
 search range bounded by the last disparity or 60 px, depth from disparity
 with a min-disparity floor). Here the right image's descriptors are
 precomputed densely once, so the scanline search is one Hamming profile per
-keypoint (ops.stereo_kernel) followed by a masked argmin with a sub-pixel
-parabola, for all keypoints at once.
+keypoint followed by a masked argmin (fused in one kernel on the card:
+ops.stereo_kernel.stereo_match) and a sub-pixel parabola, for all
+keypoints at once.
 """
 
 from __future__ import annotations
@@ -17,9 +18,7 @@ import dataclasses
 import torch
 
 from svi_mapper_tpu_torch.geometry.camera import StereoCamera
-from svi_mapper_tpu_torch.ops.stereo_kernel import stereo_profiles
-
-_BIG = 1 << 20
+from svi_mapper_tpu_torch.ops.stereo_kernel import _BIG, stereo_match
 
 
 @dataclasses.dataclass
@@ -56,37 +55,19 @@ def match_stereo(
     ``ok`` encodes what the reference signalled with CExceptionNoMatchFound
     / CExceptionZeroDisparity.
     """
-    K = uv_left.shape[0]
     dt = uv_left.dtype
-    dev = uv_left.device
-
-    # Hamming profile over the De scanline candidates left of the keypoint,
-    # in ascending-disparity order (the CUDA kernel on the card)
-    dist, u_r, x0 = stereo_profiles(
-        dense_right, uv_left, desc_left, max_disparity=max_disparity)
-    De = dist.shape[1]
-    # disparity of profile index i: u = x0 + (De-1) - i, d = u_r - u
-    base = (u_r - x0 - (De - 1)).to(dt)                          # [K] (<= 0)
-    disps = base[:, None] + torch.arange(De, dtype=dt, device=dev)[None, :]
-
-    # candidate validity: inside image (in FLOAT coordinates, u - d >= 0),
-    # disparity floor + ceiling, optional range bound
-    okc = (disps >= min_disparity) & (disps <= uv_left[:, 0:1]) \
-        & (disps <= De - 1)
-    if disparity_center is not None:
-        rng = (search_range if search_range is not None
-               else torch.full((K,), 60.0, dtype=dt, device=dev))
-        okc = okc & (torch.abs(disps - disparity_center[:, None]) <= rng[:, None])
-    dist = torch.where(okc, dist, torch.full_like(dist, _BIG))
-
-    # first minimum, as jnp.argmin
-    best_dist, best = torch.min(dist, dim=1)                     # [K]
-    disparity = torch.gather(disps, 1, best[:, None])[:, 0]
+    # the scanline search over the De candidates left of the keypoint, in
+    # ascending-disparity order: the first masked minimum and its two
+    # neighbours (the fused CUDA kernel on the card; ops.stereo_kernel)
+    best, best_dist, dm, dp, u_r, x0 = stereo_match(
+        dense_right, uv_left, desc_left, max_disparity=max_disparity,
+        min_disparity=min_disparity, disparity_center=disparity_center,
+        search_range=search_range)
+    S = min(max_disparity, dense_right.shape[1])
+    # disparity of profile index i: u = x0 + (S-1) - i, d = u_r - u
+    disparity = (u_r - x0 - (S - 1)).to(dt) + best.to(dt)
 
     # sub-pixel refinement: 3-point parabola on the Hamming profile
-    S = De
-    dm = torch.gather(dist, 1, torch.clamp(best - 1, 0, S - 1)[:, None])[:, 0]
-    dp = torch.gather(dist, 1, torch.clamp(best + 1, 0, S - 1)[:, None])[:, 0]
     denom = (dm + dp - 2 * best_dist).to(dt)
     interior = (best > 0) & (best < S - 1)
     delta = torch.where(

@@ -3,8 +3,9 @@
 Replacement for the reference's loop-closing stack:
   * DBoW2 vocabulary query + per-keyframe CBTree descriptor matching
     (CTrackerGT.cpp:383-503, CKeyFrame.cpp:6-35) -> exact all-pairs Hamming
-    scoring of fixed-capacity descriptor pools (kernel K6 behind
-    :func:`_pool_nn_counts` and :func:`match_pools`);
+    scoring of fixed-capacity descriptor pools (kernel K6: its pool-count
+    entry behind :func:`_pool_nn_counts`, its matrix entry behind
+    :func:`match_pools`);
   * per-candidate 3D-3D ICP with gates (CTrackerGT.cpp:506-631) ->
     batched ``solvers.icp`` over all candidates at once;
   * windowed single-robot consensus ``LoopClosureChecker``
@@ -36,7 +37,7 @@ from svi_mapper_tpu_torch.mapping.vocabulary import (
     build_vocabulary,
 )
 from svi_mapper_tpu_torch.ops.descriptors import unpack_bits
-from svi_mapper_tpu_torch.ops.hamming import hamming_distance_matrix
+from svi_mapper_tpu_torch.ops.hamming import hamming_distance_matrix, pool_nn_counts
 from svi_mapper_tpu_torch.solvers import icp
 from svi_mapper_tpu_torch.utils.device import (
     fetch_numpy,
@@ -295,18 +296,12 @@ def _pool_nn_counts(
     score, CBTree.h:198-236 — exact brute force replaces tree descent).
 
     The ONE home of the [P, C, P] distance-min-count block: every pool-
-    scoring entry point routes through here. The distances come from
-    :func:`~svi_mapper_tpu_torch.ops.hamming.hamming_distance_matrix`
-    (kernel K6 on the card) on ``desc_q`` against the C pools laid end to
-    end; the mask, the min over a pool and the count are PyTorch."""
-    C, Pr = desc_r.shape[-3], desc_r.shape[-2]
-    lead, P = desc_q.shape[:-2], desc_q.shape[-2]
-    d = hamming_distance_matrix(desc_q, desc_r.reshape(lead + (C * Pr, 8)))
-    d = d.reshape(lead + (P, C, Pr))
-    d = torch.where(valid_r[..., None, :, :], d, torch.full_like(d, _BIG))
-    dmin = torch.amin(d, dim=-1)                                  # [...,P,C]
-    hit = (dmin <= cutoff) & valid_q[..., :, None]
-    return torch.sum(hit, dim=-2).to(torch.int32)                 # [...,C]
+    scoring entry point routes through here. On the card it is one fused
+    kernel (K6's pool entry,
+    :func:`~svi_mapper_tpu_torch.ops.hamming.pool_nn_counts`), which never
+    writes the distance matrix; on the CPU its plain version
+    (:func:`~svi_mapper_tpu_torch.ops.hamming.pool_nn_counts_plain`)."""
+    return pool_nn_counts(desc_q, valid_q, desc_r, valid_r, cutoff)
 
 
 def score_pools(desc_q, valid_q, desc_db, valid_db, cutoff: int = 25) -> torch.Tensor:

@@ -42,8 +42,10 @@ _SIGNATURES = {
     # field, uv, band, desc_last, desc_ref, out, L, H, W, cut1, cut2,
     # cut_ref, stream
     "svi_track_scores": [_P] * 6 + [_I] * 6 + [_P],
-    # field, v, x0, desc, out, K, De, W, stream
-    "svi_stereo_profiles": [_P] * 5 + [_I] * 3 + [_P],
+    # field, uv, desc, profile, u_r, x0, K, De, H, W, stream
+    "svi_stereo_profiles": [_P] * 6 + [_I] * 4 + [_P],
+    # field, uv, desc, center, range, out, K, De, H, W, min_disparity, stream
+    "svi_stereo_match": [_P] * 6 + [_I] * 4 + [_F, _P],
     # img, out, H, W, stream
     "svi_brief_dense_fused": [_P] * 2 + [_I] * 2 + [_P],
     # T, X, obs, obs_w, S, rhs, Hll_inv, b_l, W, pp_part, hl_part, flags,
@@ -52,6 +54,8 @@ _SIGNATURES = {
     "svi_schur_system": [_P] * 16 + [_I] * 5 + [_F] * 7 + [_P],
     # a, b, out, B, N, M, stream
     "svi_hamming_matrix": [_P] * 3 + [_I] * 3 + [_P],
+    # q_desc, q_valid, r_desc, r_valid, counts, B, P, C, Pr, cutoff, stream
+    "svi_pool_nn_counts": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

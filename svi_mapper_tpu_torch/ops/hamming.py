@@ -10,6 +10,12 @@ Distance matrices, one contract:
   * :func:`hamming_distance_matrix` — kernel K6 (``csrc/hamming_matrix.cu``)
     for CUDA tensors, the plain version only for CPU tensors.
 
+And the fused pool score of the closure search, the second entry of K6:
+  * :func:`pool_nn_counts` — per query pool and reference pool, how many
+    valid queries have their nearest valid reference within a cutoff; the
+    kernel for CUDA tensors (the distance matrix is never written), the
+    plain version :func:`pool_nn_counts_plain` only for CPU tensors.
+
 Plus the batched matchers built on the distance matrix (nearest and
 mutual-nearest with a Hamming cutoff), replacing ``CBTree::match`` and the
 one-to-one enforcement of CBPTree.h:41-50 / ``_getMatchNN``
@@ -18,14 +24,15 @@ one-to-one enforcement of CBPTree.h:41-50 / ``_getMatchNN``
 K6 replaces the TPU kernel ``svi_mapper_tpu/ops/hamming.py``
 ``hamming_pallas`` (``_hamming_kernel``). Its 128 x 128 tile and the padding
 of N and M to 128 served the TPU's lanes and are not carried over: the CUDA
-kernel takes ragged N and M with a bounds test, and a leading batch
+kernels take ragged N and M with a bounds test, and a leading batch
 dimension as one grid axis.
 
-Bound on the card (N = 256, M = 4096): (N + M) * 32 bytes in, N * M * 4
-bytes out (4.2 MB, which sets it) against N * M * 24 integer operations.
-Bytes bound it. Design: a block stages 128 b-rows word-major and 32 a-rows
-in shared memory, a lane keeps the words of its four columns in registers,
-and every store of a warp is 32 neighbouring ints.
+Bound on the card: the matrix (N = 256, M = 4096) writes N * M * 4 bytes
+(4.2 MB), which sets it; the pool count at ``[8, 256, 16 x 256]`` writes
+512 bytes and its operations set it (4.3 G on the binary MMA, whose rate
+``chip_smoke.py`` measures: no data sheet gives it). Design: one tile core for both, the identity of :func:`hamming_mxu`
+on the tensor cores (the binary MMA, AND and popcount), exact (see the
+source).
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ from svi_mapper_tpu_torch.ops.descriptors import (
 
 _BIG = 1 << 20
 _GRID_MAX = 65535          # CUDA's limit on the y and z extents of a grid
-_TILE_N = 32               # a-rows per block in csrc/hamming_matrix.cu
+_TILE_N = 64               # a-rows per block in csrc/hamming_matrix.cu
 
 
 def hamming_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -113,6 +120,84 @@ def launch_hamming_matrix(lib, a, b, out=None) -> torch.Tensor:
                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check_launch(err, "svi_hamming_matrix")
         hamming_matrix_launches += 1
+    return out
+
+
+def pool_nn_counts_plain(desc_q, valid_q, desc_r, valid_r, cutoff: int) -> torch.Tensor:
+    """Plain version of :func:`pool_nn_counts`: the distance matrix of the
+    queries against the C pools laid end to end, invalid references at
+    ``1 << 20``, the min over each pool, the cutoff and the count."""
+    C, Pr = desc_r.shape[-3], desc_r.shape[-2]
+    lead, P = desc_q.shape[:-2], desc_q.shape[-2]
+    d = hamming_packed(desc_q, desc_r.reshape(lead + (C * Pr, DESCRIPTOR_WORDS)))
+    d = d.reshape(lead + (P, C, Pr))
+    d = torch.where(valid_r[..., None, :, :], d, torch.full_like(d, _BIG))
+    dmin = torch.amin(d, dim=-1)                                  # [...,P,C]
+    hit = (dmin <= cutoff) & valid_q[..., :, None]
+    return torch.sum(hit, dim=-2).to(torch.int32)                 # [...,C]
+
+
+pool_nn_counts_launches = 0
+
+
+def pool_nn_counts(
+    desc_q: torch.Tensor,      # [..., P, 8] int32 query pools
+    valid_q: torch.Tensor,     # [..., P] bool
+    desc_r: torch.Tensor,      # [..., C, Pr, 8] int32 reference pools
+    valid_r: torch.Tensor,     # [..., C, Pr] bool
+    cutoff: int,
+) -> torch.Tensor:
+    """``[..., C]`` int32: the number of valid queries whose nearest valid
+    reference in pool ``c`` lies within ``cutoff`` (Hamming).
+
+    CUDA tensors go through the hand-written kernel (or raise); only CPU
+    tensors take :func:`pool_nn_counts_plain`. The kernel takes one batch
+    axis: leading dimensions are flattened to it here and restored."""
+    lead = desc_q.shape[:-2]
+    if (desc_r.shape[:-3] != lead or valid_q.shape != desc_q.shape[:-1]
+            or valid_r.shape != desc_r.shape[:-1]):
+        raise ValueError(f"pool_nn_counts: shapes {tuple(desc_q.shape)}, "
+                         f"{tuple(valid_q.shape)}, {tuple(desc_r.shape)}, "
+                         f"{tuple(valid_r.shape)}")
+    if not desc_q.is_cuda:
+        return pool_nn_counts_plain(desc_q, valid_q, desc_r, valid_r, cutoff)
+    B = math.prod(lead)
+    P, (C, Pr) = desc_q.shape[-2], desc_r.shape[-3:-1]
+    q = desc_q.reshape(B, P, DESCRIPTOR_WORDS).contiguous()
+    r = desc_r.reshape(B, C, Pr, DESCRIPTOR_WORDS).contiguous()
+    vq = valid_q.reshape(B, P).contiguous()
+    vr = valid_r.reshape(B, C, Pr).contiguous()
+    cuda_build.require_int32_contiguous(q, "desc_q", (DESCRIPTOR_WORDS,))
+    cuda_build.require_int32_contiguous(r, "desc_r", (DESCRIPTOR_WORDS,))
+    if not (vq.dtype == vr.dtype == torch.bool
+            and q.device == r.device == vq.device == vr.device):
+        raise ValueError("pool_nn_counts: bool masks and descriptors on one device")
+    counts = launch_pool_nn_counts(cuda_build.load_library(), q, vq, r, vr, cutoff)
+    return counts.reshape(lead + (C,))
+
+
+def launch_pool_nn_counts(lib, q, vq, r, vr, cutoff: int, out=None) -> torch.Tensor:
+    """Allocate the ``[B, C]`` counts (unless ``out`` is given) and launch
+    the kernel on checked, contiguous CUDA inputs."""
+    global pool_nn_counts_launches
+    B, P = q.shape[:2]
+    C, Pr = r.shape[1:3]
+    if B > _GRID_MAX:
+        raise ValueError(f"pool_nn_counts: B={B} exceeds the grid")
+    if out is None:
+        out = torch.empty((B, C), dtype=torch.int32, device=q.device)
+    elif (out.shape != (B, C) or out.dtype != torch.int32 or not out.is_contiguous()
+          or out.device != q.device):
+        raise ValueError("pool_nn_counts: out must be a contiguous int32 tensor "
+                         f"of shape {(B, C)} on {q.device}")
+    if B * C > 0:
+        with torch.cuda.device(q.device):
+            err = lib.svi_pool_nn_counts(
+                q.data_ptr(), vq.data_ptr(), r.data_ptr(), vr.data_ptr(),
+                out.data_ptr(), B, P, C, Pr, int(cutoff),
+                torch.cuda.current_stream().cuda_stream)
+        cuda_build.check_launch(err, "svi_pool_nn_counts")
+        pool_nn_counts_launches += 1
     return out
 
 

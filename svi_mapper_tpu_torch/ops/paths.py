@@ -13,17 +13,20 @@ Call sites:
     (K3), twice per frame;
   * ``frontend.tracking.track_landmarks`` -> ``ops.track_kernel.track_scores``
     (K1);
-  * ``frontend.stereo.match_stereo`` -> ``ops.stereo_kernel.stereo_profiles``
-    (K2);
+  * ``frontend.stereo.match_stereo`` -> ``ops.stereo_kernel.stereo_match``
+    (K2, the fused match entry; ``ops.stereo_kernel.stereo_profiles``, the
+    profile entry, has no caller on a path);
   * ``solvers.ba.bundle_adjust`` -> ``ops.ba_kernel.schur_assemble`` (K4,
     K <= 32) or ``schur_assemble_tiled`` (K5, K % 32 == 0 up to 128), once
     per LM iteration (``solvers.ba.schur_kernel_auto``); other windows take
     the materialised Jacobians and launch neither;
-  * ``mapping.closure._pool_nn_counts`` and the exact branch of
-    ``mapping.closure.match_pools`` -> ``ops.hamming.hamming_distance_matrix``
-    (K6); so do ``ops.hamming.match_nearest`` / ``match_mutual`` /
-    ``count_matches``. The probabilistic branch of ``match_pools`` is two
-    float32 matrix products and launches no kernel of the port.
+  * ``mapping.closure._pool_nn_counts`` -> ``ops.hamming.pool_nn_counts``
+    (K6, the fused pool-count entry);
+  * the exact branch of ``mapping.closure.match_pools`` ->
+    ``ops.hamming.hamming_distance_matrix`` (K6, the matrix entry); so do
+    ``ops.hamming.match_nearest`` / ``match_mutual`` / ``count_matches``.
+    The probabilistic branch of ``match_pools`` is two float32 matrix
+    products and launches no kernel of the port.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import torch
 
 
 def launch_counts() -> dict:
-    """The six wrappers' launch counters, by kernel name."""
+    """The wrappers' launch counters (six kernels, K2 and K6 with two
+    entries each), by entry name."""
     from svi_mapper_tpu_torch.ops import (
         ba_kernel,
         descriptors,
@@ -43,10 +47,12 @@ def launch_counts() -> dict:
 
     return {"track_scores": track_kernel.track_scores_launches,
             "stereo_profiles": stereo_kernel.stereo_profiles_launches,
+            "stereo_match": stereo_kernel.stereo_match_launches,
             "brief_dense_fused": descriptors.brief_dense_fused_launches,
             "schur_assemble": ba_kernel.schur_assemble_launches,
             "schur_assemble_tiled": ba_kernel.schur_assemble_tiled_launches,
-            "hamming_matrix": hamming.hamming_matrix_launches}
+            "hamming_matrix": hamming.hamming_matrix_launches,
+            "pool_nn_counts": hamming.pool_nn_counts_launches}
 
 
 def reset_launch_counts() -> None:
@@ -60,10 +66,12 @@ def reset_launch_counts() -> None:
 
     track_kernel.track_scores_launches = 0
     stereo_kernel.stereo_profiles_launches = 0
+    stereo_kernel.stereo_match_launches = 0
     descriptors.brief_dense_fused_launches = 0
     ba_kernel.schur_assemble_launches = 0
     ba_kernel.schur_assemble_tiled_launches = 0
     hamming.hamming_matrix_launches = 0
+    hamming.pool_nn_counts_launches = 0
 
 
 def kernel_paths(ba_window_ks: tuple[int, ...] = (8, 32, 64),
@@ -80,8 +88,8 @@ def kernel_paths(ba_window_ks: tuple[int, ...] = (8, 32, 64),
         "device": dev.type,
         "dense_brief": pick("cuda:brief_dense_fused", "torch:smooth_brief_dense_plain"),
         "tracking": pick("cuda:track_scores", "torch:window_scores"),
-        "stereo": pick("cuda:stereo_profiles", "torch:row_span_profiles"),
-        "closure_pool_counts": pick("cuda:hamming_matrix", "torch:hamming_packed"),
+        "stereo": pick("cuda:stereo_match", "torch:stereo_match_plain"),
+        "closure_pool_counts": pick("cuda:pool_nn_counts", "torch:pool_nn_counts_plain"),
         "closure_match_exact": pick("cuda:hamming_matrix", "torch:hamming_packed"),
         "closure_match_probabilistic": "torch:matmul",
     }

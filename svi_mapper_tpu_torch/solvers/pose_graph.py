@@ -12,12 +12,18 @@ adds the standard (J_j = I, J_i = -Ad(M_ij)) block contributions into a
 dense [6N, 6N] system and solves by Cholesky — N is the keyframe count
 (hundreds), so the dense solve is small.
 
-The edges' blocks are added with ``index_put_(accumulate=True)``; several
-edges share a pose, and on a CUDA device such repeated indices are summed in
-no fixed order, so two runs of the same graph can differ in the last bits of
-``H`` (a float32 sum of at most a few dozen terms per entry: ~1e-6
-relative). The GN loop is a Python loop with one host read per iteration
-(the step size against ``convergence``).
+The edges' blocks are summed in one fixed order on every run and every
+device: once per graph, the terms of each block of ``H`` and of ``b`` are
+listed by a stable sort of their target block (``_plan_sums``: a valid
+edge's terms in edge order, the ``H_ii`` terms before ``H_jj``, ``H_ij``,
+``H_ji``; an invalid edge adds exact zeros and is left out), and each GN
+iteration adds every block's terms one after another, rank by rank
+(``_sum_in_order``: elementwise float32 additions, whose rounding is the
+same on the CPU and the card), then writes each block once. A scatter-add
+with repeated indices would sum them in no fixed order on a CUDA device.
+Planning reads the edges to the host once per call. The GN loop is a
+Python loop with one host read per iteration (the step size against
+``convergence``).
 """
 
 from __future__ import annotations
@@ -106,6 +112,70 @@ def sequential_edge_weight(T_ij: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + dt2)
 
 
+@dataclasses.dataclass(frozen=True)
+class _SumPlan:
+    """Where each sum goes and the order of its terms."""
+
+    targets: torch.Tensor    # [U] int64 distinct target indices, ascending
+    terms: torch.Tensor      # [U, R] int64 the terms of each target, in order;
+                             # the index one past the last term pads
+
+
+def _plan_sums(targets: torch.Tensor, take: torch.Tensor) -> _SumPlan:
+    """The order in which ``_sum_in_order`` adds terms: term ``v`` (where
+    ``take[v]``) goes to ``targets[v]``, and the terms of one target are
+    added in the order of ``v`` (a stable sort by target). Planned on the
+    host, moved to the device of ``targets``."""
+    dev = targets.device
+    v_all = targets.shape[0]
+    pos = torch.nonzero(take.cpu())[:, 0]
+    key = targets.cpu()[pos]
+    order = torch.argsort(key, stable=True)
+    pos, key = pos[order], key[order]
+    uniq, counts = torch.unique_consecutive(key, return_counts=True)
+    R = int(counts.max()) if len(counts) else 0
+    run = torch.repeat_interleave(torch.arange(len(uniq)), counts)
+    rank = torch.arange(len(key)) - (torch.cumsum(counts, 0) - counts)[run]
+    terms = torch.full((len(uniq), R), v_all, dtype=torch.int64)
+    terms[run, rank] = pos
+    return _SumPlan(uniq.to(torch.int64).to(dev), terms.to(dev))
+
+
+def _sum_in_order(values: torch.Tensor, plan: _SumPlan) -> torch.Tensor:
+    """``[U, ...]``: each target's terms of ``values [V, ...]`` added one
+    after another in the plan's order (a padding index adds an exact zero,
+    which changes no sum)."""
+    if plan.terms.shape[1] == 0:
+        return values.new_zeros((0,) + values.shape[1:])
+    padded = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
+    acc = padded[plan.terms[:, 0]]
+    for r in range(1, plan.terms.shape[1]):
+        acc = acc + padded[plan.terms[:, r]]
+    return acc
+
+
+def assemble_normal_equations(H_ii, H_jj, H_ij_blk, b_i, b_j, plan_H, plan_b, N):
+    """The edges' blocks summed in the plans' fixed order: ``H [N, N, 6, 6]``
+    (blocks first, so that one index names a block) and ``b [N, 6]``."""
+    dtype, dev = H_ii.dtype, H_ii.device
+    terms = torch.cat([H_ii, H_jj, H_ij_blk, H_ij_blk.transpose(-1, -2)])
+    H = torch.zeros((N * N, 6, 6), dtype=dtype, device=dev)
+    H[plan_H.targets] = _sum_in_order(terms, plan_H)
+    b = torch.zeros((N, 6), dtype=dtype, device=dev)
+    b[plan_b.targets] = _sum_in_order(torch.cat([b_i, b_j]), plan_b)
+    return H.reshape(N, N, 6, 6), b
+
+
+def plan_assembly(ei: torch.Tensor, ej: torch.Tensor, valid: torch.Tensor, N: int):
+    """The plans of ``assemble_normal_equations`` for edges ``(ei, ej)``:
+    the terms ``H_ii, H_jj, H_ij, H_ji`` of every valid edge go to the blocks
+    ``(i, i), (j, j), (i, j), (j, i)``, its ``b_i, b_j`` to ``i, j``."""
+    plan_H = _plan_sums(torch.cat([ei * N + ei, ej * N + ej, ei * N + ej, ej * N + ei]),
+                        valid.repeat(4))
+    plan_b = _plan_sums(torch.cat([ei, ej]), valid.repeat(2))
+    return plan_H, plan_b
+
+
 def _edge_residuals(T_wc, edges):
     """r [E,6] for all edges."""
     Ti = T_wc[edges.i.long()]
@@ -149,6 +219,7 @@ def optimize_pose_graph(
     nn = torch.arange(N, device=dev)
     free = (~fix_mask).to(dtype)
     J_i = -adjoint(edges.T_ij)                                   # [E,6,6]
+    plan_H, plan_b = plan_assembly(ei, ej, edges.valid, N)       # the host read
     if gravity is not None:
         gw = gravity.weight * gravity.valid.to(dtype)
 
@@ -187,15 +258,8 @@ def optimize_pose_graph(
         b_i = torch.einsum("eki,ek,ek->ei", J_i, w6, r)
         b_j = w6 * r
 
-        # blocks first ([N, N, 6, 6]) so that one index pair names a block
-        H = torch.zeros((N, N, 6, 6), dtype=dtype, device=dev)
-        H.index_put_((ei, ei), H_ii, accumulate=True)
-        H.index_put_((ej, ej), H_jj, accumulate=True)
-        H.index_put_((ei, ej), H_ij_blk, accumulate=True)
-        H.index_put_((ej, ei), H_ij_blk.transpose(-1, -2), accumulate=True)
-        b = torch.zeros((N, 6), dtype=dtype, device=dev)
-        b.index_add_(0, ei, b_i)
-        b.index_add_(0, ej, b_j)
+        H, b = assemble_normal_equations(H_ii, H_jj, H_ij_blk, b_i, b_j,
+                                         plan_H, plan_b, N)
 
         if gravity is not None:
             Rg, rg = gravity_residual(T)                         # [N,3]

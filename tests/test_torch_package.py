@@ -240,21 +240,24 @@ def test_left_out_options_raise_not_implemented():
 
 
 def test_kernel_paths_report():
-    """The port's path report names real call sites and reads the six
-    launch counters."""
+    """The port's path report names real call sites and reads the launch
+    counters of the six kernels' eight entries."""
     from svi_mapper_tpu_torch.ops import hamming, paths
 
     report = paths.kernel_paths(device="cpu")
-    assert report["closure_pool_counts"] == "torch:hamming_packed"
+    assert report["closure_pool_counts"] == "torch:pool_nn_counts_plain"
+    assert report["stereo"] == "torch:stereo_match_plain"
     assert report["ba_schur_K8"] == "torch:materialised"
     on_card = paths.kernel_paths((8, 40, 64, 256), device="cuda")   # by shape only
     assert on_card["closure_match_exact"] == "cuda:hamming_matrix"
+    assert on_card["closure_pool_counts"] == "cuda:pool_nn_counts"
+    assert on_card["stereo"] == "cuda:stereo_match"
     assert on_card["ba_schur_K8"] == "cuda:schur_assemble"
     assert on_card["ba_schur_K64"] == "cuda:schur_assemble_tiled"
     assert on_card["ba_schur_K40"] == on_card["ba_schur_K256"] == "torch:materialised"
     assert set(report["launches"]) == {
-        "track_scores", "stereo_profiles", "brief_dense_fused", "schur_assemble",
-        "schur_assemble_tiled", "hamming_matrix"}
+        "track_scores", "stereo_profiles", "stereo_match", "brief_dense_fused",
+        "schur_assemble", "schur_assemble_tiled", "hamming_matrix", "pool_nn_counts"}
     hamming.hamming_matrix_launches = 3
     assert paths.launch_counts()["hamming_matrix"] == 3
     paths.reset_launch_counts()
@@ -283,8 +286,9 @@ def test_kernel_build_needs_a_compiler():
         "brief_dense.cu", "hamming_matrix.cu", "schur_assemble.cu",
         "stereo_profiles.cu", "track_scores.cu"]
     assert set(cuda_build._SIGNATURES) == {
-        "svi_track_scores", "svi_stereo_profiles", "svi_brief_dense_fused",
-        "svi_schur_system", "svi_hamming_matrix"}
+        "svi_track_scores", "svi_stereo_profiles", "svi_stereo_match",
+        "svi_brief_dense_fused", "svi_schur_system", "svi_hamming_matrix",
+        "svi_pool_nn_counts"}
     # each exported name is defined, with as many parameters, in a source
     import re
     text = "".join(p.read_text() for p in cuda_build.sources())

@@ -17,7 +17,7 @@ from svi_mapper_tpu_torch.solvers import pose_graph as t_pg
 from tests import torch_parity as tp
 
 # poses of the two packages after the same number of GN iterations: float32
-# sums in another order (the edge blocks are scatter-added), 1e-4 m / rad
+# sums in another order than XLA's, 1e-4 m / rad
 POSE_TOL = 1e-4
 
 
@@ -263,3 +263,72 @@ def test_pose_graph_ring_of_680_against_float64():
     assert np.abs(tres.T_wc.numpy() - T64).max() < 5e-3
     assert (chip_smoke.end_point_error(tres.T_wc.numpy(), T_true)
             < 0.7 * chip_smoke.end_point_error(T_est, T_true))
+
+
+def _scatter_assembly(H_ii, H_jj, H_ij, b_i, b_j, ei, ej, N):
+    """The assembly before the sums were given a fixed order: four
+    scatter-adds into the blocks and two into b."""
+    H = torch.zeros((N, N, 6, 6), dtype=H_ii.dtype)
+    H.index_put_((ei, ei), H_ii, accumulate=True)
+    H.index_put_((ej, ej), H_jj, accumulate=True)
+    H.index_put_((ei, ej), H_ij, accumulate=True)
+    H.index_put_((ej, ei), H_ij.transpose(-1, -2), accumulate=True)
+    b = torch.zeros((N, 6), dtype=b_i.dtype)
+    b.index_add_(0, ei, b_i)
+    b.index_add_(0, ej, b_j)
+    return H, b
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fixed_order_assembly_same_bits_and_scatter_sums(seed):
+    """F8: the edges' blocks, given in a shuffled order with repeated pairs,
+    self-loops and invalid edges, are summed into the same H and b bits on
+    two runs, each with its own plan; the sums equal the scatter-adds to
+    1e-6 relative, and an invalid edge contributes nothing."""
+    rng = np.random.default_rng(seed)
+    N = 30
+    ei = np.concatenate([np.arange(N - 1), rng.integers(0, N, 60)])
+    ej = np.concatenate([np.arange(1, N), rng.integers(0, N, 60)])
+    ei[-5:], ej[-5:] = 3, 3                            # self-loops
+    ei[-10:-5], ej[-10:-5] = 2, 7                      # a repeated pair
+    order = rng.permutation(len(ei))
+    ei, ej = ei[order], ej[order]
+    E = len(ei)
+    valid = rng.random(E) > 0.1
+    blocks = [torch.from_numpy(rng.normal(0, 1, (E, 6, 6)).astype(np.float32))
+              for _ in range(3)]
+    bs = [torch.from_numpy(rng.normal(0, 1, (E, 6)).astype(np.float32)) for _ in range(2)]
+    tei, tej = torch.from_numpy(ei).long(), torch.from_numpy(ej).long()
+    tvalid = torch.from_numpy(valid)
+    runs = []
+    for _ in range(2):
+        plan_H, plan_b = t_pg.plan_assembly(tei, tej, tvalid, N)
+        runs.append(t_pg.assemble_normal_equations(*blocks, *bs, plan_H, plan_b, N))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    m = tvalid[:, None, None].float()
+    H_old, b_old = _scatter_assembly(blocks[0] * m, blocks[1] * m, blocks[2] * m,
+                                     bs[0] * m[:, :, 0], bs[1] * m[:, :, 0], tei, tej, N)
+    H, b = runs[0]
+    assert H.shape == (N, N, 6, 6) and b.shape == (N, 6)
+    np.testing.assert_allclose(H.numpy(), H_old.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(H_old.abs().max()))
+    np.testing.assert_allclose(b.numpy(), b_old.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(b_old.abs().max()))
+    # a block no valid edge touches stays an exact zero
+    touched = np.zeros((N, N), bool)
+    for i, j in zip(ei[valid], ej[valid]):
+        touched[[i, j, i, j], [i, j, j, i]] = True
+    assert (H.numpy()[~touched] == 0).all()
+
+
+def test_pose_graph_same_bits_twice(rng):
+    N = 24
+    T_true, T_est = tp.pose_chain(rng, N, noise=0.01)
+    rel = lambda i, j: T_true[j] @ np.linalg.inv(T_true[i])  # noqa: E731
+    e = tp.chain_edges(T_est, [(0, N - 1, rel(0, N - 1)), (2, N - 3, rel(2, N - 3))])
+    e["valid"][-1] = False
+    runs = [t_pg.optimize_pose_graph(
+        torch.from_numpy(T_est), convert.pose_graph_edges_from_numpy(e, device="cpu"),
+        torch.from_numpy(_fix0(N)), device="cpu") for _ in range(2)]
+    assert torch.equal(runs[0].T_wc, runs[1].T_wc)
+    assert int(runs[0].iterations) == int(runs[1].iterations)
