@@ -46,7 +46,18 @@ one CUDA card, ``nvcc`` and nothing from the network. It
    it assembles must have a shape at which the kernels were held against
    their plain versions. Each path must have launched its kernels: K2's
    fused match on every ``match_stereo`` call, K6's pool count on every
-   pool scoring.
+   pool scoring;
+6. drives the stereo-inertial path: the port on the card against the port
+   on the CPU in lock step on 8 frames at 512x256 with 10 IMU samples a
+   frame (``svi_gpu_vs_cpu``); the real-data front at the VI sensor's
+   480x752 from the shipped vi_sensor calibration, equalization and remap
+   card against CPU bit for bit, then 16 frames of ``process_imu_samples``
+   (``svi_rectified``); and the configuration of ``bench.py:bench_svi`` —
+   the same 208-frame loop with 10 IMU samples a frame through
+   ``StereoInertialTracker.process_many_imu(chunk=32)`` ->
+   ``finalize_backend`` (``svi_loop``), which must close the loop, pass
+   gravity unaries to every pose graph and BA window, and launch every
+   kernel of its path.
 
 Every phase prints one line of JSON. Any failure raises, so the exit code
 is non-zero and the final line is not printed. The last line is
@@ -795,39 +806,16 @@ def reset_launch_counts() -> None:
 # trajectory error
 # ---------------------------------------------------------------------------
 
-def ate_rmse(est, gt) -> float:
+def ate_anchored(est, gt) -> float:
     """RMSE of camera centres, both trajectories expressed in the frame of
-    their own first pose (no further alignment)."""
+    their own first pose and not aligned further (``eval.trajectory.ate_rmse``
+    with ``align=False`` on the anchored poses)."""
     import numpy as np
 
-    def centres(poses):
-        poses = np.asarray(poses, np.float64)
-        out = []
-        for T in poses:
-            Trel = T @ np.linalg.inv(poses[0])
-            out.append(-Trel[:3, :3].T @ Trel[:3, 3])
-        return np.stack(out)
+    from svi_mapper_tpu_torch.eval import trajectory as ev
 
-    d = centres(est) - centres(gt)
-    return float(np.sqrt(np.mean(np.sum(d * d, axis=1))))
-
-
-def ate_rmse_aligned(est, gt) -> float:
-    """RMSE of camera centres after the rigid (no scale) alignment that
-    minimises it — the JAX package's ``eval.trajectory.ate_rmse``."""
-    import numpy as np
-
-    def centres(poses):
-        poses = np.asarray(poses, np.float64)
-        return -np.einsum("nji,nj->ni", poses[:, :3, :3], poses[:, :3, 3])
-
-    p, g = centres(est), centres(gt)
-    pc, gc = p - p.mean(0), g - g.mean(0)
-    U, _, Vt = np.linalg.svd(gc.T @ pc)
-    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
-    R = U @ D @ Vt
-    d = pc @ R.T - gc
-    return float(np.sqrt(np.mean(np.sum(d * d, axis=1))))
+    est, gt = (np.asarray(p, np.float64) for p in (est, gt))
+    return ev.ate_rmse(est @ np.linalg.inv(est[0]), gt @ np.linalg.inv(gt[0]), align=False)
 
 
 # ---------------------------------------------------------------------------
@@ -927,7 +915,7 @@ def run_main_path(device, profile: bool = False) -> tuple[dict, dict]:
     traj = tracker.trajectory_array
     require(traj.shape == (n, 4, 4) and np.isfinite(traj).all(),
             "traj.shape == (n, 4, 4) and np.isfinite(traj).all()")
-    ate = ate_rmse(traj, poses)
+    ate = ate_anchored(traj, poses)
     require(ate < 0.10, f"ATE {ate} m against the exact ground truth")
     require(all(counts[k] > 0 for k in FRONTEND_KERNELS),
             f"kernel not launched: {counts}")
@@ -1296,9 +1284,10 @@ def check_schur_kernel(device, name: str, K: int, L: int, timed: bool,
     return out
 
 
-# the windows SLAMSystem assembles on the 208-frame loop: the 8-keyframe local
-# BA (K4) and the incremental BA after a closure, bucketed to 64 keyframes
-# (K5), both over the loop's 1024 landmarks
+# the windows SLAMSystem and StereoInertialTracker assemble on the 208-frame
+# loop (slam_loop and svi_loop alike): the 8-keyframe local BA (K4) and the
+# incremental BA after a closure, bucketed to 64 keyframes (K5), both over
+# the loop's 1024 landmarks
 LOOP_BA_SHAPES = [("schur_assemble", 8, N_LANDMARKS),
                   ("schur_assemble_tiled", 64, N_LANDMARKS)]
 
@@ -1497,8 +1486,8 @@ def run_pose_graph(device, n: int = 680) -> dict:
                 ms_per_iteration=1e3 * seconds / max(its, 1),
                 chi2_initial=chi0, chi2_final=chi1,
                 end_point_err_before_m=e0, end_point_err_after_m=e1,
-                ate_rmse_before_m=ate_rmse(T_est, T_true),
-                ate_rmse_after_m=ate_rmse(T_opt, T_true))
+                ate_rmse_before_m=ate_anchored(T_est, T_true),
+                ate_rmse_after_m=ate_anchored(T_opt, T_true))
 
 
 def run_icp(device, batch: int = 4, points: int = 256) -> dict:
@@ -2098,6 +2087,7 @@ def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
     import torch
 
     from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
+    from svi_mapper_tpu_torch.eval import trajectory as ev
     from svi_mapper_tpu_torch.io import synthetic
     from svi_mapper_tpu_torch.models.slam import SLAMSystem
     from svi_mapper_tpu_torch.solvers import ba
@@ -2176,11 +2166,12 @@ def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
     rejected = [i for i, o in enumerate(outs[1:], 1) if not bool(o.posit_ok)]
     n_kf = len(slam.slam_keyframes)
     st = slam.stats
-    ate_rec, ate_opt = ate_rmse_aligned(raw, seq.poses_wc), ate_rmse_aligned(opt, seq.poses_wc)
+    ate_rec, ate_opt = ev.ate_rmse(raw, seq.poses_wc), ev.ate_rmse(opt, seq.poses_wc)
     # anchored at the first pose, no alignment: printed with its verdict, not
     # required (the loop's drift is largest on its far side and the closure
     # acts where the loop ends, so this figure barely moves)
-    anchored_rec, anchored_opt = ate_rmse(raw, seq.poses_wc), ate_rmse(opt, seq.poses_wc)
+    anchored_rec, anchored_opt = (ate_anchored(raw, seq.poses_wc),
+                                  ate_anchored(opt, seq.poses_wc))
     on_path = (FRONTEND_KERNELS + (("schur_assemble",) if schur_kernels else ())
                + (CLOSURE_KERNEL,))
     k5_ran = counts["schur_assemble_tiled"] > 0
@@ -2258,6 +2249,489 @@ def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
     require(slam.db.n == n_kf and slam.db.desc.is_cuda and slam.db.prob.is_cuda,
             "closure database left the card")
     return report, counts
+
+
+# ---------------------------------------------------------------------------
+# the stereo-inertial path
+# ---------------------------------------------------------------------------
+
+SVI_SUB, SVI_DT = 10, 0.05       # 200 Hz IMU : 20 fps frames (bench.py:bench_svi)
+# the JAX package's StereoInertialTracker on the same loop, on a CPU
+# (compare_svi_loop.py, measurement noise seeds 0 / 1 / 2): behaviour to
+# compare, no time taken from it
+SVI_LOOP_JAX_CPU = {"keyframes": [49, 51, 50], "closures_accepted": [2, 2, 2],
+                    "closures_deduped": [13, 13, 12], "ba_runs": [8, 10, 10],
+                    "pose_graph_runs": [2, 2, 2],
+                    "ate_recorded_m": [1.1854, 1.4413, 1.5350],
+                    "ate_optimised_m": [1.0749, 1.3221, 1.6815]}
+# Where the pose solve refuses a frame (the three wall crossings), the
+# stereo-inertial fallback is dead reckoning by rotation only (the reference's
+# CTrackerSVI.cpp:548-551, mirrored): the frame's 0.91 m step is lost, and
+# with it the map placed from that pose. So on this loop the aligned ATE is
+# above 1 m in both packages, and the optimised one is above the recorded in
+# two of six JAX runs and in every port run (whose back-end converges where
+# the JAX package's stalls on its float32 log). The bounds: the recorded
+# trajectory before the first refusal (the IMU-primed front-end alone; 0.018 m
+# in both packages on a CPU), and the optimised one above the worst of both
+# packages' CPU runs (1.68 m JAX, 1.85 m port) with a margin.
+SVI_ATE_BEFORE_FIRST_REFUSAL_M = 0.05
+SVI_ATE_BOUND_M = 2.0
+
+
+def svi_blocks(n: int, omega, accel) -> tuple[list, list, list]:
+    """bench.py:bench_svi's per-frame sample blocks: frame 0 gets one static
+    sample, frame i the (i-1)-th measurement repeated over 10 steps of 5 ms."""
+    import numpy as np
+
+    from svi_mapper_tpu_torch.imu import interpolator as imu
+
+    up = np.array([0.0, -1.0, 0.0])
+    dts = [np.full(1 if i == 0 else SVI_SUB, SVI_DT if i == 0 else SVI_DT / SVI_SUB,
+                   np.float32) for i in range(n)]
+    oms = [np.zeros((1, 3), np.float32) if i == 0
+           else np.tile(omega[i - 1], (SVI_SUB, 1)).astype(np.float32) for i in range(n)]
+    acs = [(up * imu.GRAVITY)[None].astype(np.float32) if i == 0
+           else np.tile(accel[i - 1], (SVI_SUB, 1)).astype(np.float32) for i in range(n)]
+    return dts, oms, acs
+
+
+def count_ops(fn) -> int:
+    """PyTorch operations that ``fn`` dispatches, views, aliases and CPU
+    scalars left out: on CUDA tensors each of them is a kernel launch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    free = {"view", "_unsafe_view", "slice", "select", "expand", "t", "transpose",
+            "unsqueeze", "squeeze", "alias", "as_strided", "detach", "permute",
+            "lift_fresh", "scalar_tensor"}
+
+    class Counting(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in free:
+                Counting.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Counting():
+        fn()
+    return Counting.n
+
+
+def zero_calibration():
+    import numpy as np
+
+    from svi_mapper_tpu_torch.imu import interpolator as imu
+
+    return imu.ImuCalibration(
+        R_imu_to_world=np.eye(3), bias_gyro=np.zeros(3), bias_accel=np.zeros(3),
+        noise_gyro=np.zeros(3), noise_accel=np.zeros(3), n_samples=200)
+
+
+def run_svi_loop(device) -> tuple[dict, dict]:
+    """``bench.py:bench_svi`` through the port's ``StereoInertialTracker``,
+    once: the 208-frame loop at 376 x 1241, 10 IMU samples a frame,
+    ``process_many_imu(chunk=32)`` -> ``finalize_backend()``, loop closure
+    and local BA on. The report's ``ba_windows`` names the kernel, K and L
+    of every BA window the run assembled."""
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
+    from svi_mapper_tpu_torch.eval import trajectory as ev
+    from svi_mapper_tpu_torch.imu import interpolator as imu
+    from svi_mapper_tpu_torch.io import synthetic
+    from svi_mapper_tpu_torch.models.svi import StereoInertialTracker
+    from svi_mapper_tpu_torch.solvers import ba
+
+    params = dataclasses.replace(
+        DEFAULT_PARAMS, max_landmarks=N_LANDMARKS, max_detections=N_LANDMARKS,
+        keyframe_translation_m2=4.0, keyframe_rotation_rad2=0.02,
+        max_motion_scaling_for_optimization=2.5)
+    seq = synthetic.SyntheticSequence(
+        n_frames=LOOP_FRAMES, width=W_RAW, height=H, trajectory="loop",
+        loop_radius=LOOP_RADIUS, device=device)
+    t0 = time.perf_counter()
+    imgs_l = torch.empty((LOOP_FRAMES, H, W_RAW), dtype=torch.float32, device=device)
+    imgs_r = torch.empty_like(imgs_l)
+    for i in range(LOOP_FRAMES):
+        imgs_l[i], imgs_r[i], _ = seq.frame(i)
+    calib0 = zero_calibration()
+    omega, accel = imu.synthesize_measurements(
+        seq.poses_wc, SVI_DT, calib=calib0, noise_gyro=0.001, noise_accel=0.02,
+        device=device)
+    dts, oms, acs = svi_blocks(LOOP_FRAMES, omega, accel)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+
+    windows, grav_pg, grav_ba = [], [], []
+
+    class Recording(StereoInertialTracker):
+        """Notes every BA window (kernel, K, L, launch count then) and whether
+        each pose graph and BA window received gravity unaries."""
+
+        def _assemble_ba_window(self, kfs, K=None):
+            asm = super()._assemble_ba_window(kfs, K)
+            if asm is not None:
+                K_w, L_w = int(asm[1].shape[0]), int(asm[1].shape[1])
+                name = ("schur_assemble" if K_w <= ba.SCHUR_KERNEL_MAX_K
+                        else "schur_assemble_tiled")
+                windows.append((name, K_w, L_w, launch_counts()[name]))
+            return asm
+
+        def _gravity_priors(self, N0, N):
+            g = super()._gravity_priors(N0, N)
+            grav_pg.append(g is not None and bool(g.valid[:N0].all()))
+            return g
+
+        def _gravity_ba_terms(self, kfs, K):
+            g = super()._gravity_ba_terms(kfs, K)
+            grav_ba.append(g is not None and bool((g[1][:len(kfs)] > 0).all()))
+            return g
+
+    tr = Recording(seq.cam, calib0, params, equalize=False, device=device)
+    n_sync = LOOP_SYNC_CHUNKS * LOOP_CHUNK
+    outs = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with stereo_match_calls() as k2_calls, pool_count_calls() as scorings:
+        syncs = count_host_syncs(lambda: outs.extend(tr.process_many_imu(
+            imgs_l[:n_sync], imgs_r[:n_sync], dts[:n_sync], oms[:n_sync], acs[:n_sync],
+            chunk=LOOP_CHUNK)))
+        outs.extend(tr.process_many_imu(imgs_l[n_sync:], imgs_r[n_sync:], dts[n_sync:],
+                                        oms[n_sync:], acs[n_sync:], chunk=LOOP_CHUNK))
+        tr.finalize_backend()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    opt = tr.optimized_trajectory()
+    raw = tr.trajectory_array
+
+    by_shape = {}
+    for i, (name, K_w, L_w, at) in enumerate(windows):
+        later = [w[3] for w in windows[i + 1:] if w[0] == name]
+        row = by_shape.setdefault((name, K_w, L_w), {"windows": 0, "launches": 0})
+        row["windows"] += 1
+        row["launches"] += (later[0] if later else counts[name]) - at
+
+    centres = -np.einsum("nji,nj->ni", seq.poses_wc[:, :3, :3], seq.poses_wc[:, :3, 3])
+    side = centres[:, 0] > 9.0
+    crossings = [i for i in range(1, LOOP_FRAMES) if side[i] != side[i - 1]]
+    at_wall = {i + d for i in crossings for d in (-2, -1, 0, 1, 2)}
+    rejected = [i for i, o in enumerate(outs[1:], 1) if not bool(o.posit_ok)]
+    n_kf = len(tr.slam_keyframes)
+    st = tr.stats
+    ate_rec, ate_opt = ev.ate_rmse(raw, seq.poses_wc), ev.ate_rmse(opt, seq.poses_wc)
+    first = rejected[0] if rejected else LOOP_FRAMES
+    ate_before = ev.ate_rmse(raw[:first], seq.poses_wc[:first])
+    closure_err = []
+    for c in tr.accepted_closures:
+        f_r = tr.slam_keyframes[c.ref_kf].frame_idx
+        f_q = tr.slam_keyframes[c.query_kf].frame_idx
+        T_true = (seq.poses_wc[f_q].astype(np.float64)
+                  @ np.linalg.inv(seq.poses_wc[f_r].astype(np.float64)))
+        D = np.asarray(c.T_qr, np.float64) @ np.linalg.inv(T_true)
+        closure_err.append(float(np.linalg.norm(D[:3, 3])))
+    on_path = FRONTEND_KERNELS + (CLOSURE_KERNEL,)
+    tm = tr.timings
+    report = {
+        "phase": "svi_loop", "frames": LOOP_FRAMES, "image": [H, W_RAW],
+        "landmarks": N_LANDMARKS, "chunk": LOOP_CHUNK, "radius_m": LOOP_RADIUS,
+        "imu_samples_per_frame": SVI_SUB, "imu_sample_cap": tr._imu_sample_cap,
+        "stage_seconds": stage_s, "seconds": seconds,
+        "frames_per_s": LOOP_FRAMES / seconds,
+        "keyframes": n_kf, "gravity_obs": len(tr.gravity_obs),
+        "stats": {k: int(v) for k, v in st.items()},
+        "accepted_closures": [[c.ref_kf, c.query_kf] for c in tr.accepted_closures],
+        "jax_package_cpu": SVI_LOOP_JAX_CPU,
+        "ba_windows": [{"kernel": name, "K": K_w, "L": L_w, **row}
+                       for (name, K_w, L_w), row in sorted(by_shape.items())],
+        "gravity_to_pose_graphs": grav_pg, "gravity_to_ba_windows": grav_ba,
+        "ate_recorded_m": ate_rec, "ate_optimised_m": ate_opt,
+        "ate_bound_m": SVI_ATE_BOUND_M,
+        "ate_recorded_before_first_refusal_m": ate_before,
+        "frames_before_first_refusal": first,
+        "ate_before_first_refusal_bound_m": SVI_ATE_BEFORE_FIRST_REFUSAL_M,
+        "closure_transform_err_m": closure_err,
+        "n_tracked_min": min(int(o.n_tracked) for o in outs[1:]),
+        "wall_crossings_at_frames": crossings, "posit_rejected_at_frames": rejected,
+        "timings_s": {k: float(v) for k, v in tm.items()},
+        "tail_ms_per_keyframe": {
+            k: 1e3 * tm.get(k, 0.0) / max(n_kf, 1)
+            for k in ("kf_db_add", "kf_closure", "kf_backend", "kf_ba", "kf_pose_graph",
+                      "kf_total")},
+        "launches": counts,
+        "match_stereo_calls": k2_calls.calls, "pool_scorings": scorings.calls,
+        "host_syncs_counted_over_chunks": LOOP_SYNC_CHUNKS,
+        "host_syncs_per_chunk": syncs / LOOP_SYNC_CHUNKS,
+        "host_syncs_per_frame_in_chunks": syncs / n_sync,
+    }
+    # the IMU step of one frame alone (after the counts were read): the
+    # prior, its fallback and the velocity update, on frame 100's inputs
+    from svi_mapper_tpu_torch.models import frame as frame_mod
+
+    blk = [torch.from_numpy(a).to(device) for a in tr._pad_samples(dts[100], oms[100],
+                                                                    acs[100])]
+
+    def imu_step():
+        T_p, _, _ = frame_mod.svi_prior(tr.state.T_wc, *blk, tr.velocity, tr._R_ci,
+                                        tr._bias_gyro, tr._bias_accel)
+        return frame_mod.svi_velocity(T_p, tr.state.T_wc, torch.sum(blk[0] * blk[3]),
+                                      tr.velocity)
+
+    report["imu_step"] = {"ops": count_ops(imu_step), "host_syncs": count_host_syncs(imu_step),
+                          "ms": time_ms(imu_step, repeats=20),
+                          "frame_ms": 1e3 * tm["frame_total"] / LOOP_FRAMES}
+    emit(report)             # before the checks: a failing run shows its numbers
+
+    poses_ok = all(np.isfinite(np.asarray(o.T_wc)).all() for o in outs)
+    require(len(outs) == LOOP_FRAMES and poses_ok and np.isfinite(opt).all(),
+            "a pose of the SVI loop is not finite")
+    bad = [i for i in rejected if i not in at_wall]
+    require(not bad, f"pose solve rejected on frames {bad} (wall crossings at {crossings})")
+    require(st["closures_accepted"] >= 1 and st["pose_graph_runs"] >= 1
+            and st["ba_runs"] >= 1, f"the SVI loop was not closed: {st}")
+    require(first >= 20 and ate_before < SVI_ATE_BEFORE_FIRST_REFUSAL_M,
+            f"ATE over the {first} frames before the first refusal: {ate_before} m")
+    require(ate_opt < SVI_ATE_BOUND_M,
+            f"ATE: recorded {ate_rec} m, optimised {ate_opt} m")
+    require(max(closure_err) < LOOP_CLOSURE_ERR_M,
+            f"accepted closures off by {closure_err} m from the ground truth")
+    require(len(tr.gravity_obs) == n_kf, f"{len(tr.gravity_obs)} gravity observations "
+            f"for {n_kf} keyframes")
+    require(len(grav_pg) == st["pose_graph_runs"] and all(grav_pg),
+            f"gravity priors to the pose graphs: {grav_pg}")
+    require(len(grav_ba) == len(windows) and all(grav_ba),
+            f"gravity unaries to the BA windows: {grav_ba}")
+    require(all(counts[k] > 0 for k in on_path)
+            and counts["schur_assemble"] + counts["schur_assemble_tiled"] > 0,
+            f"kernel not launched on the SVI loop: {counts}")
+    require(counts["stereo_match"] == k2_calls.calls
+            and counts[CLOSURE_KERNEL] == scorings.calls,
+            f"{k2_calls.calls} scanline matches and {scorings.calls} pool scorings "
+            f"against launches {counts}")
+    return report, counts
+
+
+def fine_trajectory(n_frames: int, sub: int, dt_fine: float):
+    """Analytic world->camera poses at the IMU rate: forward motion with a
+    weave and a yaw wiggle (the JAX package's tests/test_imu.py fixture)."""
+    import numpy as np
+
+    poses = []
+    for k in range(n_frames * sub + 1):
+        t = k * dt_fine
+        yaw = 0.06 * np.sin(2 * np.pi * 0.8 * t)
+        c, s = np.cos(yaw), np.sin(yaw)
+        R_cw = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        pos = np.array([0.15 * np.sin(2 * np.pi * 0.5 * t), 0.0, 1.4 * t])
+        T = np.eye(4)
+        T[:3, :3] = R_cw
+        T[:3, 3] = -R_cw @ pos
+        poses.append(T.astype(np.float32))
+    return np.stack(poses)
+
+
+def check_svi_against_cpu(device) -> dict:
+    """The port on the card against the port on the CPU on a short
+    stereo-inertial sequence (8 frames at 512 x 256, 10 IMU samples a
+    frame, from a seed), in lock step: before every frame the card's
+    tracker is given the CPU tracker's state. The IMU prior on the same
+    inputs within 1e-6; flags, ``n_tracked`` and ``inliers`` equal; pose
+    within 1e-4 m and 1e-5 rad; velocity within 1e-4 m/s."""
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch import convert
+    from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
+    from svi_mapper_tpu_torch.imu import interpolator as imu
+    from svi_mapper_tpu_torch.io import synthetic
+    from svi_mapper_tpu_torch.models import frame as frame_mod
+    from svi_mapper_tpu_torch.models.svi import StereoInertialTracker
+
+    n, sub, h = 8, 10, 0.005
+    fine = fine_trajectory(n, sub, h)
+    cam_cpu = synthetic.default_camera(512, 256, device="cpu")
+    cam_gpu = synthetic.default_camera(512, 256, device=device)
+    bias_g, bias_a = np.array([0.008, -0.003, 0.002]), np.array([0.04, -0.02, 0.08])
+    calib = imu.ImuCalibration(R_imu_to_world=np.eye(3), bias_gyro=bias_g,
+                               bias_accel=bias_a, noise_gyro=np.zeros(3),
+                               noise_accel=np.zeros(3), n_samples=200)
+    omega, accel = imu.synthesize_measurements(fine, h, calib=calib, noise_gyro=0.002,
+                                               noise_accel=0.04, seed=3, device="cpu")
+    frames = [tuple(x.numpy() for x in synthetic.render_stereo(cam_cpu, T))
+              for T in fine[::sub][:n]]
+    up = np.array([0.0, -1.0, 0.0])
+    blocks = [(np.full(1, h, np.float32), np.zeros((1, 3), np.float32),
+               (up * imu.GRAVITY)[None].astype(np.float32))]
+    blocks += [(np.full(sub, h, np.float32), omega[(i - 1) * sub:i * sub],
+                accel[(i - 1) * sub:i * sub]) for i in range(1, n)]
+    params = dataclasses.replace(DEFAULT_PARAMS, max_landmarks=512, max_detections=512,
+                                 keyframe_translation_m2=0.04)
+    kw = dict(equalize=False, enable_loop_closure=False, enable_local_ba=False)
+    cpu = StereoInertialTracker(cam_cpu, calib, params, device="cpu", **kw)
+    gpu = StereoInertialTracker(cam_gpu, calib, params, device=device, **kw)
+    worst = {"prior": 0.0, "rot_total": 0.0, "pos_m": 0.0, "rot_rad": 0.0, "vel": 0.0}
+    for (L, R), block in zip(frames, blocks):
+        carried = convert.svi_state_to_numpy(cpu)
+        convert.svi_state_from_numpy(gpu, carried)
+        # the IMU prior of this frame on both devices, from the same inputs
+        args = [torch.from_numpy(np.asarray(a)) for a in cpu._pad_samples(*block)]
+        priors = []
+        for tr in (cpu, gpu):
+            d, om, ac, va = (a.to(tr.device) for a in args)
+            T_p, _, rot = frame_mod.svi_prior(tr.state.T_wc, d, om, ac, va, tr.velocity,
+                                              tr._R_ci, tr._bias_gyro, tr._bias_accel)
+            priors.append((T_p.cpu().numpy(), rot.cpu().numpy()))
+        worst["prior"] = max(worst["prior"], float(np.abs(priors[0][0] - priors[1][0]).max()))
+        worst["rot_total"] = max(worst["rot_total"],
+                                 float(np.abs(priors[0][1] - priors[1][1]).max()))
+        a = cpu.process_imu_samples(L, R, *block)
+        b = gpu.process_imu_samples(L, R, *block)
+        for name in ("posit_ok", "is_keyframe", "n_tracked", "inliers"):
+            require(int(getattr(a, name)) == int(getattr(b, name)),
+                    f"svi_gpu_vs_cpu: {name} {getattr(a, name)} on the CPU, "
+                    f"{getattr(b, name)} on the card")
+        A, B = np.asarray(a.T_wc, np.float64), np.asarray(b.T_wc, np.float64)
+        D = A[:3, :3] @ B[:3, :3].T
+        worst["pos_m"] = max(worst["pos_m"], float(np.linalg.norm(
+            -A[:3, :3].T @ A[:3, 3] + B[:3, :3].T @ B[:3, 3])))
+        worst["rot_rad"] = max(worst["rot_rad"], float(np.linalg.norm(
+            0.5 * np.array([D[2, 1] - D[1, 2], D[0, 2] - D[2, 0], D[1, 0] - D[0, 1]]))))
+        worst["vel"] = max(worst["vel"], float(np.abs(
+            cpu.velocity.numpy() - gpu.velocity.cpu().numpy()).max()))
+    report = {"frames": n, "image": [256, 512], "imu_samples_per_frame": sub,
+              "max_diff": worst, "keyframes": len(gpu.slam_keyframes),
+              "posit_ok_from_frame_1": all(bool(o.posit_ok) for o in gpu.outputs[1:])}
+    require(worst["prior"] <= 1e-6 and worst["rot_total"] <= 1e-6,
+            f"svi_gpu_vs_cpu: IMU prior differs: {worst}")
+    require(worst["pos_m"] < 1e-4 and worst["rot_rad"] < 1e-5 and worst["vel"] < 1e-4,
+            f"svi_gpu_vs_cpu: poses or velocities differ: {worst}")
+    require(gpu.velocity.is_cuda and gpu.state.T_wc.is_cuda, "SVI state left the card")
+    return report
+
+
+def raw_from_rectified(img, K, dist, R_rect, P):
+    """A raw (distorted, unrectified) image made from a rectified one: for
+    every raw pixel, undistort (fixed-point iteration), rotate into the
+    rectified frame and project with ``P``; sample bilinearly there. The
+    inverse of what ``undistort_rectify_maps`` + ``remap_bilinear`` undo."""
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch.ops.image import remap_bilinear
+
+    h, w = img.shape
+    k1, k2, p1, p2 = [float(c) for c in dist]
+    u, v = np.meshgrid(np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64))
+    xd, yd = (u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1]
+    x, y = xd.copy(), yd.copy()
+    for _ in range(20):
+        r2 = x * x + y * y
+        radial = 1 + k1 * r2 + k2 * r2 * r2
+        x = (xd - 2 * p1 * x * y - p2 * (r2 + 2 * x * x)) / radial
+        y = (yd - p1 * (r2 + 2 * y * y) - 2 * p2 * x * y) / radial
+    rays = np.stack([x, y, np.ones_like(x)], -1) @ R_rect.T
+    mx = P[0, 0] * rays[..., 0] / rays[..., 2] + P[0, 2]
+    my = P[1, 1] * rays[..., 1] / rays[..., 2] + P[1, 2]
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(img.device)  # noqa: E731
+    return remap_bilinear(img, t(mx), t(my))
+
+
+def run_svi_rectified(device) -> dict:
+    """The front of the real-data path at the VI sensor's size, 480 x 752:
+    ``stereo_rectify`` -> ``undistort_rectify_maps`` from the shipped
+    vi_sensor calibration, raw frames made from rendered rectified ones,
+    ``equalize_hist`` and ``remap_bilinear`` on the card against the CPU
+    (the same bits), then 16 frames of ``process_imu_samples`` with
+    ``equalize=True``, those maps and the rig's ``T_cam_imu``."""
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch import config
+    from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
+    from svi_mapper_tpu_torch.eval import trajectory as ev
+    from svi_mapper_tpu_torch.geometry.camera import StereoCamera, pinhole_from_projection
+    from svi_mapper_tpu_torch.imu import interpolator as imu
+    from svi_mapper_tpu_torch.io import synthetic
+    from svi_mapper_tpu_torch.models.svi import StereoInertialTracker
+    from svi_mapper_tpu_torch.ops import image
+
+    cl = config.load_camera_calibration("vi_sensor_camera_left.txt")
+    cr = config.load_camera_calibration("vi_sensor_camera_right.txt")
+    w, h = cl.width, cl.height
+    T_10 = cr.T_cam_imu @ np.linalg.inv(cl.T_cam_imu)
+    R0, R1, P0, P1 = image.stereo_rectify(cl.K, cl.dist, cr.K, cr.dist, T_10, w, h)
+    maps = (*image.undistort_rectify_maps(cl.K, cl.dist, R0, P0, w, h),
+            *image.undistort_rectify_maps(cr.K, cr.dist, R1, P1, w, h))
+    cam = StereoCamera(
+        left=pinhole_from_projection(P0, w, h, K=cl.K, dist=cl.dist, R_rect=R0,
+                                     device=device),
+        right=pinhole_from_projection(P1, w, h, K=cr.K, dist=cr.dist, R_rect=R1,
+                                      device=device))
+    n, sub, dt = 16, 10, 0.005
+    fine = fine_trajectory(n, sub, dt)
+    raw = []
+    for T in fine[::sub][:n]:
+        L, R = synthetic.render_stereo(cam, T)
+        raw.append((raw_from_rectified(L, cl.K, cl.dist, R0, P0),
+                    raw_from_rectified(R, cr.K, cr.dist, R1, P1)))
+    # equalize + remap of every raw frame, card against CPU
+    err_eq = err_rm = 0.0
+    for pair in raw:
+        for k, img in enumerate(pair):
+            mx, my = maps[2 * k], maps[2 * k + 1]
+            outs = []
+            for dev in (device, torch.device("cpu")):
+                eq = image.equalize_hist(image.to_u8(img.to(dev)))
+                rm = image.remap_bilinear(eq, torch.from_numpy(mx).to(dev),
+                                          torch.from_numpy(my).to(dev))
+                outs.append((eq.cpu(), rm.cpu()))
+            err_eq = max(err_eq, float((outs[0][0] - outs[1][0]).abs().max()))
+            err_rm = max(err_rm, float((outs[0][1] - outs[1][1]).abs().max()))
+    # the rig's IMU measures in its own frame: camera-frame rates and forces
+    # rotate back through T_cam_imu before they are fed
+    omega_c, accel_c = imu.synthesize_measurements(fine, dt, noise_gyro=0.002,
+                                                   noise_accel=0.04, seed=5, device="cpu")
+    R_ci = cl.T_cam_imu[:3, :3]
+    omega_i, accel_i = omega_c @ R_ci, accel_c @ R_ci
+    up = np.array([0.0, -1.0, 0.0])
+    calib = zero_calibration()
+    params = dataclasses.replace(DEFAULT_PARAMS, max_landmarks=N_LANDMARKS,
+                                 max_detections=N_LANDMARKS)
+    tr = StereoInertialTracker(cam, calib, params, rectify_maps=maps, equalize=True,
+                               T_cam_imu=cl.T_cam_imu, enable_loop_closure=False,
+                               device=device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, (L, R) in enumerate(raw):
+        if i == 0:
+            tr.process_imu_samples(L, R, np.full(1, dt, np.float32), np.zeros((1, 3)),
+                                   ((up * imu.GRAVITY) @ R_ci)[None])
+        else:
+            sl = slice((i - 1) * sub, i * sub)
+            tr.process_imu_samples(L, R, np.full(sub, dt, np.float32), omega_i[sl],
+                                   accel_i[sl])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    traj = tr.trajectory_array
+    report = {
+        "phase": "svi_rectified", "frames": n, "image": [h, w],
+        "baseline_m": cam.baseline, "equalize_hist_card_vs_cpu_max_abs_err": err_eq,
+        "remap_bilinear_card_vs_cpu_max_abs_err": err_rm,
+        "ms_per_frame": 1e3 * seconds / n,
+        "posit_ok": [bool(o.posit_ok) for o in tr.outputs],
+        "n_tracked_min": min(int(o.n_tracked) for o in tr.outputs[1:]),
+        "ate_m": ev.ate_rmse(traj, fine[::sub][:n]),
+        "launches": counts,
+    }
+    emit(report)
+    require(err_eq == 0.0 and err_rm == 0.0,
+            f"equalize_hist / remap_bilinear differ between card and CPU: {err_eq}, {err_rm}")
+    require(np.isfinite(traj).all(), "a pose of svi_rectified is not finite")
+    require(all(counts[k] > 0 for k in FRONTEND_KERNELS),
+            f"kernel not launched on svi_rectified: {counts}")
+    return report
 
 
 def main() -> int:
@@ -2351,18 +2825,25 @@ def main() -> int:
     report, query_counts = run_closure_query(device)
     emit(report)
     loop, loop_counts = run_slam_loop(device)     # emits its own line
-    # every BA window of the loop has a shape at which K4 / K5 were held
-    # against their plain versions: the two expected ones in the kernel
-    # phase above, any other one now
+    # 6. the stereo-inertial path: card against CPU, the real-data front at
+    #    the VI sensor's size, the bench loop (each with its counts set to 0
+    #    just before it and read just after)
+    emit({"phase": "svi_gpu_vs_cpu", **check_svi_against_cpu(device)})
+    run_svi_rectified(device)                       # emits its own line
+    svi, svi_counts = run_svi_loop(device)          # emits its own line
+    # every BA window of both loops has a shape at which K4 / K5 were held
+    # against their plain versions: the expected ones in the kernel phase
+    # above, any other one now
     at_shape = {(k["name"], k["K"], k["L"]): k for k in backend
                 if "ms" in k and not k["padded"]}
-    late = [(w["kernel"], w["K"], w["L"]) for w in loop["ba_windows"]
-            if (w["kernel"], w["K"], w["L"]) not in at_shape]
+    loop_windows = loop["ba_windows"] + svi["ba_windows"]
+    late = sorted({(w["kernel"], w["K"], w["L"]) for w in loop_windows
+                   if (w["kernel"], w["K"], w["L"]) not in at_shape})
     for shape in late:
         at_shape[shape] = check_schur_kernel(device, *shape, timed=True)
     emit({"phase": "kernels_backend_loop_shapes",
           "checked_in_kernel_phase": [list(s) for s in LOOP_BA_SHAPES],
-          "checked_after_the_loop": [at_shape[shape] for shape in late]})
+          "checked_after_the_loops": [at_shape[shape] for shape in late]})
     # launches of each kernel entry on the path that is its own: the
     # front-end, the map optimisation on generated windows, and the whole
     # system's loop (the closure entries'; the loop's counts of all eight go
@@ -2396,6 +2877,7 @@ def main() -> int:
             # no single PyTorch call computes any of the eight functions
             "library_ms": None,
             "launches_slam_loop": loop_counts[k["name"]],
+            "launches_svi_loop": svi_counts[k["name"]],
             "launches_closure_query": query_counts[k["name"]],
             "on_path": k["name"] not in OFF_PATH_ENTRIES,
         }
@@ -2416,13 +2898,14 @@ def main() -> int:
             row["pixels_scored_per_landmark_slam_loop"] = \
                 loop["track_scores_on_path"]["pixels_scored_per_landmark"]
         if k["name"] in BACKEND_KERNELS:
-            row["at_slam_loop"] = [
-                {"K": w["K"], "L": w["L"], "windows": w["windows"],
-                 "launches": w["launches"],
-                 **{key: at_shape[(w["kernel"], w["K"], w["L"])][key]
-                    for key in timed_keys
-                    if key in at_shape[(w["kernel"], w["K"], w["L"])]}}
-                for w in loop["ba_windows"] if w["kernel"] == k["name"]]
+            for key, path in (("at_slam_loop", loop), ("at_svi_loop", svi)):
+                row[key] = [
+                    {"K": w["K"], "L": w["L"], "windows": w["windows"],
+                     "launches": w["launches"],
+                     **{t: at_shape[(w["kernel"], w["K"], w["L"])][t]
+                        for t in timed_keys
+                        if t in at_shape[(w["kernel"], w["K"], w["L"])]}}
+                    for w in path["ba_windows"] if w["kernel"] == k["name"]]
         kernels.append(row)
     print(smi, flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -66,6 +66,30 @@ class CameraCalibration:
     def has_imu(self) -> bool:
         return self.q_cam_to_imu is not None
 
+    @property
+    def T_cam_imu(self) -> np.ndarray | None:
+        """The IMU->camera transform [4,4] (float64) of a vi_sensor file, or
+        None. The file gives the camera's pose in the IMU frame:
+        ``x_imu = R_intr R_q x_cam + t`` with ``R_q`` from
+        ``vecQuaternionToIMU`` (xyzw), ``t`` = ``vecTranslationToIMU`` and
+        ``R_intr`` = ``matRotationIntrinsicCAMERAtoIMU`` (the two boards'
+        axes, 180 degrees about z on the VI sensor). With it the two shipped
+        cameras' relative pose puts the left one 0.110 m left of the right
+        one, the baseline their rectified projections state."""
+        if not self.has_imu:
+            return None
+        x, y, z, w = self.q_cam_to_imu / np.linalg.norm(self.q_cam_to_imu)
+        R_q = np.array([
+            [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+            [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+            [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
+        R_intr = (np.eye(3) if self.R_intrinsic_cam_to_imu is None
+                  else self.R_intrinsic_cam_to_imu)
+        T_imu_cam = np.eye(4)
+        T_imu_cam[:3, :3] = R_intr @ R_q
+        T_imu_cam[:3, 3] = self.t_cam_to_imu
+        return np.linalg.inv(T_imu_cam)
+
 
 def load_camera_calibration(path: str | Path) -> CameraCalibration:
     """Parse one calibration text file (ref CParameterBase.h:169-392).

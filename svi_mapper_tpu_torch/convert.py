@@ -21,6 +21,7 @@ from svi_mapper_tpu_torch.geometry.camera import (
     StereoCamera,
     pinhole_from_projection,
 )
+from svi_mapper_tpu_torch.imu.interpolator import ImuCalibration
 from svi_mapper_tpu_torch.mapping.landmarks import LandmarkTable
 from svi_mapper_tpu_torch.mapping.vocabulary import Vocabulary
 from svi_mapper_tpu_torch.models.frame import FrameState
@@ -224,3 +225,46 @@ def slam_keyframes_to_numpy(keyframes: list) -> list:
     return [{f: (getattr(kf, f) if f in ("index", "frame_idx")
                  else np.array(getattr(kf, f))) for f in _KEYFRAME_FIELDS}
             for kf in keyframes]
+
+
+# ---------------------------------------------------------------------------
+# the stereo-inertial tracker
+# ---------------------------------------------------------------------------
+
+_IMU_FIELDS = ("R_imu_to_world", "bias_gyro", "bias_accel", "noise_gyro",
+               "noise_accel")
+
+
+def imu_calibration_from_numpy(d) -> ImuCalibration:
+    """A dictionary (or any object with the attributes) holding
+    ``R_imu_to_world, bias_gyro, bias_accel, noise_gyro, noise_accel,
+    n_samples`` -> the port's ``ImuCalibration`` (numpy fields, copied)."""
+    get = d.get if isinstance(d, dict) else (lambda k: getattr(d, k))
+    return ImuCalibration(
+        **{k: np.array(get(k)) for k in _IMU_FIELDS},
+        n_samples=int(get("n_samples")))
+
+
+def svi_state_to_numpy(tracker) -> dict:
+    """What a stereo-inertial tracker carries from frame to frame beyond the
+    ``SLAMSystem`` records: ``{state, velocity [3], gravity_obs [n,3],
+    T_cam_imu [4,4]}``."""
+    return {"state": state_to_numpy(tracker.state),
+            "velocity": tracker.velocity.detach().cpu().numpy(),
+            "gravity_obs": np.array(tracker.gravity_obs, np.float32).reshape(-1, 3),
+            "T_cam_imu": np.array(tracker.T_cam_imu, np.float32)}
+
+
+def svi_state_from_numpy(tracker, d: dict) -> None:
+    """Load ``{state, velocity, gravity_obs[, T_cam_imu]}`` (numpy, e.g.
+    read from a JAX ``StereoInertialTracker``) into a port tracker on its
+    device: the frame state, the carried velocity, the per-keyframe gravity
+    observations and the rig extrinsics."""
+    dev = tracker.device
+    tracker.state = state_from_numpy(d["state"], dev)
+    tracker.velocity = _tensor(np.asarray(d["velocity"], np.float32), dev)
+    tracker.gravity_obs = [np.array(g, np.float32)
+                           for g in np.asarray(d["gravity_obs"]).reshape(-1, 3)]
+    if d.get("T_cam_imu") is not None:
+        tracker.T_cam_imu = np.array(d["T_cam_imu"], np.float32)
+        tracker._R_ci = _tensor(tracker.T_cam_imu[:3, :3], dev)

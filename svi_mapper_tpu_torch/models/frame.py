@@ -29,10 +29,11 @@ from svi_mapper_tpu_torch.frontend.stereo import match_stereo
 from svi_mapper_tpu_torch.frontend.tracking import track_landmarks
 from svi_mapper_tpu_torch.geometry import se3
 from svi_mapper_tpu_torch.geometry.camera import StereoCamera
+from svi_mapper_tpu_torch.imu import interpolator as imu_mod
 from svi_mapper_tpu_torch.mapping import landmarks as lm
 from svi_mapper_tpu_torch.ops.corners import detect_corners, occupancy_mask
 from svi_mapper_tpu_torch.ops.descriptors import brief_at, smooth_brief_dense
-from svi_mapper_tpu_torch.ops.image import _pad
+from svi_mapper_tpu_torch.ops.image import _pad, equalize_hist, remap_bilinear, to_u8
 from svi_mapper_tpu_torch.solvers.landmark_opt import optimize_landmarks
 from svi_mapper_tpu_torch.solvers.posit import solve_stereo_posit
 from svi_mapper_tpu_torch.utils.device import resolve_device
@@ -449,3 +450,136 @@ def process_chunk(
     if emit_snapshots:
         return state, _stack(outs), _stack(snaps)
     return state, _stack(outs)
+
+
+# ---------------------------------------------------------------------------
+# the stereo-inertial frame step
+# ---------------------------------------------------------------------------
+
+def svi_preprocess(img: torch.Tensor, equalize: bool, map_x=None,
+                   map_y=None) -> torch.Tensor:
+    """equalizeHist + undistortAndrectify of one raw frame
+    (ref CTrackerSVI.cpp:339-341); ``map_x`` None means no remap."""
+    if equalize:
+        img = equalize_hist(to_u8(img))
+    if map_x is not None:
+        img = remap_bilinear(img, map_x, map_y)
+    return img
+
+
+def svi_prior(T_wc: torch.Tensor, dts, omega, accel, valid, velocity,
+              R_ci, bias_gyro, bias_accel):
+    """The IMU prior of one frame interval and its dead-reckoning fallback:
+    ``(T_prior, T_fallback, rot_total)``. The fallback is the integrated
+    rotation with its x component zeroed, applied to ``T_wc`` without
+    translation (ref CTrackerSVI.cpp:548-551)."""
+    T_prior, rot_total = imu_mod.integrate_prior_samples(
+        T_wc, dts, omega, accel, valid, velocity, R_ci, bias_gyro, bias_accel)
+    rot_yz = torch.cat([torch.zeros_like(rot_total[:1]), rot_total[1:]])
+    T_fb = imu_mod.matmul_ordered(
+        se3.make_T(se3.exp_so3(rot_yz), torch.zeros_like(rot_total)), T_wc)
+    return T_prior, T_fb, rot_total
+
+
+def svi_velocity(T_new: torch.Tensor, T_before: torch.Tensor, dt_total,
+                 velocity: torch.Tensor) -> torch.Tensor:
+    """Camera-frame velocity from the accepted visual pose delta over the
+    frame interval (finite difference); the old velocity where the interval
+    is empty. It differences poses of one gauge: the caller takes it before
+    any back-end correction or world shift."""
+    xi = se3.log_se3(imu_mod.matmul_ordered(T_new, se3.inv_T(T_before)))
+    dt_total = torch.as_tensor(dt_total, dtype=torch.float32, device=T_new.device)
+    return torch.where(dt_total > 1e-6,
+                       xi[:3] / torch.clamp(dt_total, min=1e-6), velocity)
+
+
+def process_frame_svi(
+    state: FrameState,
+    img_left,                   # [H, W] RAW frame (tensor or numpy)
+    img_right,
+    cam: StereoCamera,
+    params: TrackingParams,
+    dts: torch.Tensor,          # [cap] per-sample time steps (0-padded)
+    omega: torch.Tensor,        # [cap, 3] raw IMU angular velocities
+    accel: torch.Tensor,        # [cap, 3] raw IMU specific forces
+    valid: torch.Tensor,        # [cap] bool sample mask
+    velocity: torch.Tensor,     # [3] camera-frame linear velocity carry-in
+    R_ci: torch.Tensor,         # [3,3] IMU->camera rotation
+    bias_gyro: torch.Tensor,    # [3]
+    bias_accel: torch.Tensor,   # [3]
+    *,
+    do_landmark_opt: bool = True,
+    equalize: bool = False,
+    rect_maps: tuple | None = None,   # (mlx, mly, mrx, mry) or None
+    device: torch.device | str | None = None,
+):
+    """One stereo-inertial frame: preprocess the raw frames, integrate the
+    interval's IMU samples into a pose prior from the carried velocity,
+    run the visual step with the IMU dead-reckoning fallback, and update
+    the velocity from the accepted pose delta. No host read beyond
+    :func:`process_frame`'s. Returns ``(state, output, velocity)``."""
+    dev = resolve_device(device)
+    mlx = mly = mrx = mry = None
+    if rect_maps is not None:
+        mlx, mly, mrx, mry = rect_maps
+    l = svi_preprocess(_to_image(img_left, dev), equalize, mlx, mly)
+    r = svi_preprocess(_to_image(img_right, dev), equalize, mrx, mry)
+    T = state.T_wc
+    T_prior, T_fb, _ = svi_prior(T, dts, omega, accel, valid, velocity,
+                                 R_ci, bias_gyro, bias_accel)
+    state2, out = process_frame(
+        state, l, r, cam, params, T_prior,
+        use_external_prior=True, do_landmark_opt=do_landmark_opt,
+        T_fallback=T_fb, device=dev,
+    )
+    vel = svi_velocity(state2.T_wc, T, torch.sum(dts * valid), velocity)
+    return state2, out, vel
+
+
+def process_chunk_svi(
+    state: FrameState,
+    imgs_left,                  # [N, H, W] RAW frames (preprocessing runs
+    imgs_right,                 #   inside the loop)
+    cam: StereoCamera,
+    params: TrackingParams,
+    dts: torch.Tensor,          # [N, cap] per-sample time steps (0-padded)
+    omega: torch.Tensor,        # [N, cap, 3] raw IMU angular velocities
+    accel: torch.Tensor,        # [N, cap, 3] raw IMU specific forces
+    valid: torch.Tensor,        # [N, cap] bool sample mask
+    velocity0: torch.Tensor,    # [3] camera-frame linear velocity carry-in
+    R_ci: torch.Tensor,         # [3,3] IMU->camera rotation
+    bias_gyro: torch.Tensor,    # [3]
+    bias_accel: torch.Tensor,   # [3]
+    *,
+    landmark_opt_every: int = 1,
+    equalize: bool = False,
+    rect_maps: tuple | None = None,   # (mlx, mly, mrx, mry) or None
+    device: torch.device | str | None = None,
+):
+    """SVI throughput mode: :func:`process_frame_svi` looped over a staged
+    chunk with the velocity carried on the device — the same stepping as N
+    sequential per-frame calls, with no per-frame read of the outputs (they
+    come back stacked, as :func:`process_chunk` stacks them) and the
+    landmark-opt cadence from the carried frame index (one host read per
+    chunk).
+
+    Returns ``(state, velocity, outputs, snapshots)``.
+    """
+    dev = resolve_device(device)
+    imgs_left = _to_image(imgs_left, dev)
+    imgs_right = _to_image(imgs_right, dev)
+    every = max(1, landmark_opt_every)
+    idx0 = int(state.frame_idx)
+    vel = velocity0
+    outs, snaps = [], []
+    for i in range(imgs_left.shape[0]):
+        state, out, vel = process_frame_svi(
+            state, imgs_left[i], imgs_right[i], cam, params,
+            dts[i], omega[i], accel[i], valid[i], vel, R_ci,
+            bias_gyro, bias_accel,
+            do_landmark_opt=((idx0 + i) % every) == 0,
+            equalize=equalize, rect_maps=rect_maps, device=dev,
+        )
+        outs.append(out)
+        snaps.append(snapshot_of(state.table))
+    return state, vel, _stack(outs), _stack(snaps)

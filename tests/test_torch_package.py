@@ -34,6 +34,8 @@ def test_module_layout_mirrors_the_jax_package():
         "ops.ba_kernel", "solvers.ba", "solvers.ba_prep", "solvers.pose_graph",
         "solvers.icp", "mapping.bitstats", "mapping.vocabulary",
         "mapping.closure", "models.slam", "io.g2o_export", "ops.paths",
+        "imu.interpolator", "io.euroc", "io.kitti", "eval.trajectory", "models.svi",
+        "tools.run_euroc",
     }
     have = {m.removeprefix("svi_mapper_tpu_torch.") for m in MODULES}
     assert expected <= have
@@ -46,9 +48,13 @@ def test_module_layout_mirrors_the_jax_package():
 
 def test_importing_every_module_leaves_jax_out():
     """In a fresh interpreter: import every module of the port (and
-    chip_smoke.py's imports) and look at sys.modules."""
+    chip_smoke.py's imports) and look at sys.modules. The dataset readers'
+    PyYAML, cv2 and PIL are blocked there: the package imports without
+    them (a machine that runs the port on a GPU need not have them)."""
     code = textwrap.dedent(f"""
         import importlib, sys
+        for blocked in ("yaml", "cv2", "PIL"):
+            sys.modules[blocked] = None        # an import of it raises
         for name in {MODULES!r}:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
@@ -110,6 +116,50 @@ def test_entry_points_raise_without_device():
         frame.process_frame(state, img, img, cam, config.DEFAULT_PARAMS)
     with pytest.raises(RuntimeError):
         frame.process_chunk(state, img[None], img[None], cam, config.DEFAULT_PARAMS)
+
+
+def test_svi_entry_points_raise_without_device(tmp_path):
+    """The stereo-inertial slice's entry points under the same rule."""
+    _no_cuda()
+    from svi_mapper_tpu_torch.imu import interpolator as imu
+    from svi_mapper_tpu_torch.io import euroc, kitti
+    from svi_mapper_tpu_torch.io.synthetic import default_camera
+    from svi_mapper_tpu_torch.models import frame
+    from svi_mapper_tpu_torch.models.svi import StereoInertialTracker
+
+    cam = default_camera(128, 64, device="cpu")
+    calib = imu.ImuCalibration(np.eye(3), np.zeros(3), np.zeros(3), np.zeros(3),
+                               np.zeros(3), 1)
+    state = frame.init_state(config.DEFAULT_PARAMS, device="cpu")
+    img = np.zeros((64, 128), np.float32)
+    z3, z = torch.zeros(3), torch.zeros(4)
+    calls = [
+        lambda: StereoInertialTracker(cam, calib),
+        lambda: imu.calibrate(np.zeros((4, 3)), np.ones((4, 3))),
+        lambda: imu.synthesize_measurements(np.tile(np.eye(4), (3, 1, 1)), 0.05),
+        lambda: frame.process_frame_svi(state, img, img, cam, config.DEFAULT_PARAMS, z,
+                                        torch.zeros(4, 3), torch.zeros(4, 3),
+                                        z.bool(), z3, torch.eye(3), z3, z3),
+        lambda: frame.process_chunk_svi(state, img[None], img[None], cam,
+                                        config.DEFAULT_PARAMS, z[None],
+                                        torch.zeros(1, 4, 3), torch.zeros(1, 4, 3),
+                                        z.bool()[None], z3, torch.eye(3), z3, z3),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    seq_dir = tmp_path / "sequences" / "00" / "image_0"
+    seq_dir.mkdir(parents=True)
+    (tmp_path / "sequences" / "00" / "image_1").mkdir()
+    from PIL import Image
+
+    for d in ("image_0", "image_1"):
+        Image.fromarray(np.zeros((8, 8), np.uint8)).save(
+            tmp_path / "sequences" / "00" / d / "000000.png")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kitti.KittiSequence(tmp_path, "00")
+    assert kitti.KittiSequence(tmp_path, "00", device="cpu").cam.device.type == "cpu"
+    assert euroc.EurocSequence.__init__.__defaults__[-1] is None
 
 
 def test_map_optimisation_entry_points_raise_without_device(rng):
