@@ -57,7 +57,20 @@ one CUDA card, ``nvcc`` and nothing from the network. It
    ``StereoInertialTracker.process_many_imu(chunk=32)`` ->
    ``finalize_backend`` (``svi_loop``), which must close the loop, pass
    gravity unaries to every pose graph and BA window, and launch every
-   kernel of its path.
+   kernel of its path;
+7. checkpoints and resumes both loops: each saves ``io.checkpoint`` after
+   frame 95, and ``load_checkpoint`` onto the card must give the saved
+   state bit for bit (frame state and table, database pools and host
+   mirrors, keyframe records, closure edges, stats; for the
+   stereo-inertial tracker its velocity, gravity observations, rig and
+   calibration); frames 96-127 resumed must record the uninterrupted run's
+   poses bit for bit, and the resumed SV loop must finish with the loop's
+   accuracy checks (``checkpoint_resume``, ``checkpoint_svi``); drives the
+   SV loop rendered with the moderate photometric stress
+   (``io.stress.StressedSequence``) with the JAX package's accuracy gates
+   of ``tests/test_stress.py`` (``stress_loop``) and the aliased corridor,
+   which must accept no closure (``stress_alias``); and prints the stage
+   budget of ``eval.stage_bench`` at 1241 x 376 (``stage_budget``).
 
 Every phase prints one line of JSON. Any failure raises, so the exit code
 is non-zero and the final line is not printed. The last line is
@@ -71,7 +84,9 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 # bytes/s and simple operations/s of one H100 SXM (data sheet): device
 # memory rate, and the float32 rate outside the tensor cores taken as the
@@ -836,10 +851,13 @@ def check_against_cpu(device) -> dict:
     frames = [(l.numpy(), r.numpy(), T) for l, r, T in seq]
     cam_gpu = synthetic.default_camera(512, 256, device=device)
     report = {}
-    for mode in ("sv", "gt"):
+    # the third mode turns the landmark refinement's IDWA fallback on
+    # (TrackingParams.landmark_idwa_fallback)
+    for mode in ("sv", "gt", "sv_idwa"):
         gt = mode == "gt"
-        a = StereoTracker(cam_gpu, params, use_gt_pose=gt, device=device)
-        b = StereoTracker(seq.cam, params, use_gt_pose=gt, device="cpu")
+        p = dataclasses.replace(params, landmark_idwa_fallback=mode == "sv_idwa")
+        a = StereoTracker(cam_gpu, p, use_gt_pose=gt, device=device)
+        b = StereoTracker(seq.cam, p, use_gt_pose=gt, device="cpu")
         worst_count, worst_pos = 0, 0.0
         for l, r, T in frames:
             oa = a.process(l, r, T if gt else None)
@@ -859,7 +877,8 @@ def check_against_cpu(device) -> dict:
         require(worst_count <= 5, f"{mode}: counts differ by {worst_count}")
         require(worst_pos < 5e-2, f"{mode}: poses differ by {worst_pos} m")
         require(int(oa.n_tracked) > 100, "int(oa.n_tracked) > 100")
-        report[mode] = {"max_count_diff": worst_count, "max_pose_diff_m": worst_pos}
+        report[mode] = {"max_count_diff": worst_count, "max_pose_diff_m": worst_pos,
+                        "n_optimal": [int(o.n_optimal) for o in a.outputs]}
     return report
 
 
@@ -2071,15 +2090,163 @@ LOOP_CLOSURE_ERR_M = 0.5
 LOOP_JAX_RECORD = {"keyframes": 49, "closures_accepted": 2, "closures_deduped": 15,
                    "ba_runs": 5}
 LOOP_SYNC_CHUNKS = 2         # chunks of the run whose host reads are counted
+# the checkpoint phases: the loops save at the chunk boundary after frame
+# 95, and the resumed systems run frames 96-127 (the next chunk)
+CKPT_FRAME, CKPT_END = 96, 128
 
 
-def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
+def system_snapshot(sys_) -> dict:
+    """Every piece of a ``SLAMSystem``'s (or ``StereoInertialTracker``'s)
+    state that a checkpoint carries, as host arrays: the frame state and
+    table, the closure database's pools and host mirrors, the keyframe
+    records, both closure edge lists, the recorded trajectory, the back-end
+    queue and ``stats``; for a stereo-inertial tracker also the velocity,
+    the gravity observations, ``T_cam_imu`` and the calibration."""
+    import numpy as np
+
+    from svi_mapper_tpu_torch import convert
+    from svi_mapper_tpu_torch.ops.descriptors import words_to_numpy
+
+    st = convert.state_to_numpy(sys_.state)
+    out = {f"table__{k}": v for k, v in st.pop("table").items()}
+    out.update({f"state__{k}": np.asarray(v) for k, v in st.items()})
+    db = sys_.db
+    out["db__desc"] = words_to_numpy(db.desc)
+    for f in ("p_cam", "valid", "count", "T_wc", "prob"):
+        out[f"db__{f}"] = getattr(db, f).cpu().numpy()
+    out["db__count_host"] = np.asarray(db.count_host, np.int64)
+    out["db__T_wc_host"] = np.asarray(db.poses_host()).copy()
+    out["trajectory"] = np.stack([np.asarray(T, np.float64) for T in sys_.trajectory])
+    out["world_offset"] = np.asarray(sys_.world_offset, np.float64)
+    for i, kf in enumerate(sys_.slam_keyframes):
+        out[f"kf{i}__index_frame"] = np.asarray([kf.index, kf.frame_idx])
+        for f in ("T_wc", "obs_uv4", "obs_pos"):
+            out[f"kf{i}__{f}"] = np.asarray(getattr(kf, f))
+        # landmark ids: int32 where the run made them, int64 in the file
+        for f in ("obs_uids", "pool_uids"):
+            out[f"kf{i}__{f}"] = np.asarray(getattr(kf, f), np.int64)
+    for name in ("closure_candidates", "accepted_closures"):
+        for i, e in enumerate(getattr(sys_, name)):
+            out[f"{name}{i}__ij"] = np.asarray([e.ref_kf, e.query_kf, e.accepted, e.suppressed])
+            out[f"{name}{i}__T_qr"] = np.asarray(e.T_qr)
+            out[f"{name}{i}__uid_pairs"] = np.asarray(e.uid_pairs)
+    scalars = {
+        "stats": {k: int(v) for k, v in sys_.stats.items()},
+        "frame_count": sys_.frame_count, "db_n": db.n, "db_capacity": db.capacity,
+        "world_shifts": sys_.world_shifts, "last_opt_kf": sys_._last_opt_kf,
+        "uid_parent": sorted(sys_._uid_parent.items()),
+        "excised_uids": sorted(sys_._excised_uids),
+        "closure_queue": [sys_._last_closure_opt_kf, sys_._closure_kfs_in_queue,
+                          sys_._closure_opt_lo, sys_._kf_since_local_ba]}
+    out["scalars"] = np.frombuffer(json.dumps(scalars, sort_keys=True).encode(), np.uint8)
+    if hasattr(sys_, "velocity"):
+        out["svi__velocity"] = sys_.velocity.cpu().numpy()
+        out["svi__gravity_obs"] = np.asarray(sys_.gravity_obs, np.float32).reshape(-1, 3)
+        out["svi__T_cam_imu"] = np.asarray(sys_.T_cam_imu)
+        for f in ("R_imu_to_world", "bias_gyro", "bias_accel", "noise_gyro", "noise_accel"):
+            out[f"svi__calib__{f}"] = np.asarray(getattr(sys_.calib, f))
+        out["svi__calib__n_samples"] = np.asarray(sys_.calib.n_samples)
+    # copies: the system goes on writing its arrays in place
+    return {k: np.array(v, copy=True) for k, v in out.items()}
+
+
+def snapshot_differences(a: dict, b: dict) -> list[str]:
+    """The entries of two snapshots that are not the same bits (dtype,
+    shape and bytes), and the keys only one of them has."""
+    diff = sorted(set(a) ^ set(b))
+    for k in sorted(set(a) & set(b)):
+        x, y = a[k], b[k]
+        if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+            diff.append(k)
+    return diff
+
+
+def loop_with_checkpoint(system, keep: dict | None, start: int, outs: list, run) -> float:
+    """Runs a loop's frames from ``start`` on through ``run(a, b)``; with
+    ``keep`` (a dict with ``"path"``) in three calls that end at chunk
+    boundaries (the same chunks as one call): up to ``CKPT_FRAME``, where it
+    saves a checkpoint to ``keep["path"]`` and notes the system's snapshot
+    (``keep["at_save"]``), up to ``CKPT_END`` (snapshot ``keep["at_end"]``),
+    and the rest. Returns the seconds spent saving and snapshotting."""
+    from svi_mapper_tpu_torch.io.checkpoint import save_checkpoint
+
+    if keep is None:
+        outs.extend(run(start, LOOP_FRAMES))
+        return 0.0
+    outs.extend(run(start, CKPT_FRAME))
+    t0 = time.perf_counter()
+    save_checkpoint(keep["path"], system)
+    keep["at_save"] = system_snapshot(system)
+    spent = time.perf_counter() - t0
+    outs.extend(run(CKPT_FRAME, CKPT_END))
+    t0 = time.perf_counter()
+    keep["at_end"] = system_snapshot(system)
+    spent += time.perf_counter() - t0
+    outs.extend(run(CKPT_END, LOOP_FRAMES))
+    return spent
+
+
+def record_ba_windows(system, windows: list) -> None:
+    """Notes the kernel, K and L of every BA window ``system`` assembles
+    (and the launch count then) in ``windows``, as the loops' recording
+    subclasses do."""
+    from svi_mapper_tpu_torch.solvers import ba
+
+    assemble = system._assemble_ba_window
+
+    def recording(kfs, K=None):
+        asm = assemble(kfs, K)
+        if asm is not None:
+            K_w, L_w = int(asm[1].shape[0]), int(asm[1].shape[1])
+            name = ("schur_assemble" if K_w <= ba.SCHUR_KERNEL_MAX_K
+                    else "schur_assemble_tiled")
+            windows.append((name, K_w, L_w, launch_counts()[name]))
+        return asm
+
+    system._assemble_ba_window = recording
+
+
+def windows_by_shape(windows: list, counts: dict) -> list[dict]:
+    """Per BA window shape: how many windows and the launches they made (the
+    count at the next window of the kernel, or at the end, less the count at
+    this one)."""
+    by_shape = {}
+    for i, (name, K_w, L_w, at) in enumerate(windows):
+        later = [w[3] for w in windows[i + 1:] if w[0] == name]
+        row = by_shape.setdefault((name, K_w, L_w), {"windows": 0, "launches": 0})
+        row["windows"] += 1
+        row["launches"] += (later[0] if later else counts[name]) - at
+    return [{"kernel": name, "K": K_w, "L": L_w, **row}
+            for (name, K_w, L_w), row in sorted(by_shape.items())]
+
+
+def closure_errors(system, poses) -> list[float]:
+    """Translation error (m) of each accepted closure's measured transform
+    against the ground truth between its two keyframes."""
+    import numpy as np
+
+    errs = []
+    for c in system.accepted_closures:
+        f_r = system.slam_keyframes[c.ref_kf].frame_idx
+        f_q = system.slam_keyframes[c.query_kf].frame_idx
+        T_true = (poses[f_q].astype(np.float64)
+                  @ np.linalg.inv(poses[f_r].astype(np.float64)))
+        D = np.asarray(c.T_qr, np.float64) @ np.linalg.inv(T_true)
+        errs.append(float(np.linalg.norm(D[:3, 3])))
+    return errs
+
+
+def run_slam_loop(device, schur_kernels: bool = True,
+                  keep: dict | None = None) -> tuple[dict, dict]:
     """The whole system on the loop, once. The report's ``ba_windows`` names
     the kernel, K and L of every BA window the run assembled. With
     ``schur_kernels=False`` every BA window takes the materialised route
     (``solvers.ba``, ``use_schur_kernel=False``) instead of K4 / K5: a
     second witness of the loop's accuracy (``mutation_check.py
-    --loop-routes``), not part of the smoke run."""
+    --loop-routes``), not part of the smoke run. With ``keep`` (a dict with
+    ``"path"``), the run saves a checkpoint there at frame ``CKPT_FRAME``
+    and fills ``keep`` with what ``run_checkpoint_resume`` compares against
+    (see :func:`loop_with_checkpoint`)."""
     import contextlib
     from unittest import mock
 
@@ -2108,21 +2275,8 @@ def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
     render_s = time.perf_counter() - t0
 
     windows = []
-
-    class Recording(SLAMSystem):
-        """Notes the kernel, K and L of every BA window the run assembles,
-        and the launch counts at that moment."""
-
-        def _assemble_ba_window(self, kfs, K=None):
-            asm = super()._assemble_ba_window(kfs, K)
-            if asm is not None:
-                K_w, L_w = int(asm[1].shape[0]), int(asm[1].shape[1])
-                name = ("schur_assemble" if K_w <= ba.SCHUR_KERNEL_MAX_K
-                        else "schur_assemble_tiled")
-                windows.append((name, K_w, L_w, launch_counts()[name]))
-            return asm
-
-    slam = Recording(seq.cam, params, device=device)
+    slam = SLAMSystem(seq.cam, params, device=device)
+    record_ba_windows(slam, windows)
     reset_launch_counts()
     t0 = time.perf_counter()
     # one run; PyTorch's sync debug mode is on during its first chunks, which
@@ -2135,22 +2289,19 @@ def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
             stereo_match_calls() as k2_calls, pool_count_calls() as scorings:
         syncs = count_host_syncs(lambda: outs.extend(slam.process_many(
             imgs_l[:n_sync], imgs_r[:n_sync], chunk=LOOP_CHUNK)))
-        outs.extend(slam.process_many(imgs_l[n_sync:], imgs_r[n_sync:], chunk=LOOP_CHUNK))
+        checkpoint_s = loop_with_checkpoint(
+            slam, keep, n_sync, outs,
+            lambda a, b: slam.process_many(imgs_l[a:b], imgs_r[a:b], chunk=LOOP_CHUNK))
         slam.finalize_backend()
         torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0 - checkpoint_s
+    if keep is not None:
+        keep.update(system=slam, seq=seq, params=params, imgs=(imgs_l, imgs_r))
     counts = launch_counts()
     opt = slam.optimized_trajectory()
     raw = slam.trajectory_array
 
-    # launches per window shape: the count at the next window (or at the end)
-    # less the count at this one
-    by_shape = {}
-    for i, (name, K_w, L_w, at) in enumerate(windows):
-        later = [w[3] for w in windows[i + 1:] if w[0] == name]
-        row = by_shape.setdefault((name, K_w, L_w), {"windows": 0, "launches": 0})
-        row["windows"] += 1
-        row["launches"] += (later[0] if later else counts[name]) - at
+    ba_windows = windows_by_shape(windows, counts)
 
     # the loop is driven in the corridor world, as the JAX package's bench
     # drives it, and passes through the plane of the wall at x = 9 m three
@@ -2159,10 +2310,7 @@ def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
     # carries on by its motion model). The JAX package refuses the same
     # frames (tests/test_torch_loop_refusals.py). Everywhere else the solve
     # must accept.
-    centres = -np.einsum("nji,nj->ni", seq.poses_wc[:, :3, :3], seq.poses_wc[:, :3, 3])
-    side = centres[:, 0] > 9.0
-    crossings = [i for i in range(1, LOOP_FRAMES) if side[i] != side[i - 1]]
-    at_wall = {i + d for i in crossings for d in (-1, 0, 1)}
+    crossings, at_wall = wall_crossings(seq.poses_wc, 1)
     rejected = [i for i, o in enumerate(outs[1:], 1) if not bool(o.posit_ok)]
     n_kf = len(slam.slam_keyframes)
     st = slam.stats
@@ -2176,16 +2324,8 @@ def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
                + (CLOSURE_KERNEL,))
     k5_ran = counts["schur_assemble_tiled"] > 0
 
-    # are the closed loops true loops: the measured transform of each
-    # accepted closure against the ground truth between its two keyframes
-    closure_err = []
-    for c in slam.accepted_closures:
-        f_r = slam.slam_keyframes[c.ref_kf].frame_idx
-        f_q = slam.slam_keyframes[c.query_kf].frame_idx
-        T_true = (seq.poses_wc[f_q].astype(np.float64)
-                  @ np.linalg.inv(seq.poses_wc[f_r].astype(np.float64)))
-        D = np.asarray(c.T_qr, np.float64) @ np.linalg.inv(T_true)
-        closure_err.append(float(np.linalg.norm(D[:3, 3])))
+    # are the closed loops true loops
+    closure_err = closure_errors(slam, seq.poses_wc)
 
     tm = slam.timings
     report = {
@@ -2193,12 +2333,12 @@ def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
         "landmarks": N_LANDMARKS, "chunk": LOOP_CHUNK, "radius_m": LOOP_RADIUS,
         "render_seconds": render_s, "seconds": seconds,
         "frames_per_s": LOOP_FRAMES / seconds,
+        "checkpoint_seconds_left_out": checkpoint_s,
         "keyframes": n_kf,
         "stats": {k: int(v) for k, v in st.items()},
         "accepted_closures": [[c.ref_kf, c.query_kf] for c in slam.accepted_closures],
         "jax_package_record": LOOP_JAX_RECORD,
-        "ba_windows": [{"kernel": name, "K": K_w, "L": L_w, **row}
-                       for (name, K_w, L_w), row in sorted(by_shape.items())],
+        "ba_windows": ba_windows,
         "schur_kernels": schur_kernels, "k5_on_this_path": k5_ran,
         "ate_recorded_m": ate_rec, "ate_optimised_m": ate_opt,
         "ate_bound_m": LOOP_ATE_BOUND_M,
@@ -2243,8 +2383,8 @@ def run_slam_loop(device, schur_kernels: bool = True) -> tuple[dict, dict]:
             and counts[CLOSURE_KERNEL] == scorings.calls,
             f"{k2_calls.calls} scanline matches and {scorings.calls} pool scorings "
             f"against launches {counts}")
-    require(k5_ran == (schur_kernels and any(name == "schur_assemble_tiled"
-                                             for name, _, _ in by_shape)),
+    require(k5_ran == (schur_kernels and any(w["kernel"] == "schur_assemble_tiled"
+                                             for w in ba_windows)),
             f"K5 launches {counts['schur_assemble_tiled']} against windows {windows}")
     require(slam.db.n == n_kf and slam.db.desc.is_cuda and slam.db.prob.is_cuda,
             "closure database left the card")
@@ -2327,12 +2467,13 @@ def zero_calibration():
         noise_gyro=np.zeros(3), noise_accel=np.zeros(3), n_samples=200)
 
 
-def run_svi_loop(device) -> tuple[dict, dict]:
+def run_svi_loop(device, keep: dict | None = None) -> tuple[dict, dict]:
     """``bench.py:bench_svi`` through the port's ``StereoInertialTracker``,
     once: the 208-frame loop at 376 x 1241, 10 IMU samples a frame,
     ``process_many_imu(chunk=32)`` -> ``finalize_backend()``, loop closure
     and local BA on. The report's ``ba_windows`` names the kernel, K and L
-    of every BA window the run assembled."""
+    of every BA window the run assembled. ``keep`` as for
+    :func:`run_slam_loop`."""
     import numpy as np
     import torch
 
@@ -2341,7 +2482,6 @@ def run_svi_loop(device) -> tuple[dict, dict]:
     from svi_mapper_tpu_torch.imu import interpolator as imu
     from svi_mapper_tpu_torch.io import synthetic
     from svi_mapper_tpu_torch.models.svi import StereoInertialTracker
-    from svi_mapper_tpu_torch.solvers import ba
 
     params = dataclasses.replace(
         DEFAULT_PARAMS, max_landmarks=N_LANDMARKS, max_detections=N_LANDMARKS,
@@ -2366,17 +2506,8 @@ def run_svi_loop(device) -> tuple[dict, dict]:
     windows, grav_pg, grav_ba = [], [], []
 
     class Recording(StereoInertialTracker):
-        """Notes every BA window (kernel, K, L, launch count then) and whether
-        each pose graph and BA window received gravity unaries."""
-
-        def _assemble_ba_window(self, kfs, K=None):
-            asm = super()._assemble_ba_window(kfs, K)
-            if asm is not None:
-                K_w, L_w = int(asm[1].shape[0]), int(asm[1].shape[1])
-                name = ("schur_assemble" if K_w <= ba.SCHUR_KERNEL_MAX_K
-                        else "schur_assemble_tiled")
-                windows.append((name, K_w, L_w, launch_counts()[name]))
-            return asm
+        """Notes whether each pose graph and BA window received gravity
+        unaries."""
 
         def _gravity_priors(self, N0, N):
             g = super()._gravity_priors(N0, N)
@@ -2389,6 +2520,7 @@ def run_svi_loop(device) -> tuple[dict, dict]:
             return g
 
     tr = Recording(seq.cam, calib0, params, equalize=False, device=device)
+    record_ba_windows(tr, windows)
     n_sync = LOOP_SYNC_CHUNKS * LOOP_CHUNK
     outs = []
     reset_launch_counts()
@@ -2397,40 +2529,28 @@ def run_svi_loop(device) -> tuple[dict, dict]:
         syncs = count_host_syncs(lambda: outs.extend(tr.process_many_imu(
             imgs_l[:n_sync], imgs_r[:n_sync], dts[:n_sync], oms[:n_sync], acs[:n_sync],
             chunk=LOOP_CHUNK)))
-        outs.extend(tr.process_many_imu(imgs_l[n_sync:], imgs_r[n_sync:], dts[n_sync:],
-                                        oms[n_sync:], acs[n_sync:], chunk=LOOP_CHUNK))
+        checkpoint_s = loop_with_checkpoint(
+            tr, keep, n_sync, outs,
+            lambda a, b: tr.process_many_imu(imgs_l[a:b], imgs_r[a:b], dts[a:b], oms[a:b],
+                                             acs[a:b], chunk=LOOP_CHUNK))
         tr.finalize_backend()
         torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0 - checkpoint_s
+    if keep is not None:
+        keep.update(system=tr, seq=seq, params=params, imgs=(imgs_l, imgs_r),
+                    blocks=(dts, oms, acs))
     counts = launch_counts()
     opt = tr.optimized_trajectory()
     raw = tr.trajectory_array
 
-    by_shape = {}
-    for i, (name, K_w, L_w, at) in enumerate(windows):
-        later = [w[3] for w in windows[i + 1:] if w[0] == name]
-        row = by_shape.setdefault((name, K_w, L_w), {"windows": 0, "launches": 0})
-        row["windows"] += 1
-        row["launches"] += (later[0] if later else counts[name]) - at
-
-    centres = -np.einsum("nji,nj->ni", seq.poses_wc[:, :3, :3], seq.poses_wc[:, :3, 3])
-    side = centres[:, 0] > 9.0
-    crossings = [i for i in range(1, LOOP_FRAMES) if side[i] != side[i - 1]]
-    at_wall = {i + d for i in crossings for d in (-2, -1, 0, 1, 2)}
+    crossings, at_wall = wall_crossings(seq.poses_wc, 2)
     rejected = [i for i, o in enumerate(outs[1:], 1) if not bool(o.posit_ok)]
     n_kf = len(tr.slam_keyframes)
     st = tr.stats
     ate_rec, ate_opt = ev.ate_rmse(raw, seq.poses_wc), ev.ate_rmse(opt, seq.poses_wc)
     first = rejected[0] if rejected else LOOP_FRAMES
     ate_before = ev.ate_rmse(raw[:first], seq.poses_wc[:first])
-    closure_err = []
-    for c in tr.accepted_closures:
-        f_r = tr.slam_keyframes[c.ref_kf].frame_idx
-        f_q = tr.slam_keyframes[c.query_kf].frame_idx
-        T_true = (seq.poses_wc[f_q].astype(np.float64)
-                  @ np.linalg.inv(seq.poses_wc[f_r].astype(np.float64)))
-        D = np.asarray(c.T_qr, np.float64) @ np.linalg.inv(T_true)
-        closure_err.append(float(np.linalg.norm(D[:3, 3])))
+    closure_err = closure_errors(tr, seq.poses_wc)
     on_path = FRONTEND_KERNELS + (CLOSURE_KERNEL,)
     tm = tr.timings
     report = {
@@ -2439,12 +2559,12 @@ def run_svi_loop(device) -> tuple[dict, dict]:
         "imu_samples_per_frame": SVI_SUB, "imu_sample_cap": tr._imu_sample_cap,
         "stage_seconds": stage_s, "seconds": seconds,
         "frames_per_s": LOOP_FRAMES / seconds,
+        "checkpoint_seconds_left_out": checkpoint_s,
         "keyframes": n_kf, "gravity_obs": len(tr.gravity_obs),
         "stats": {k: int(v) for k, v in st.items()},
         "accepted_closures": [[c.ref_kf, c.query_kf] for c in tr.accepted_closures],
         "jax_package_cpu": SVI_LOOP_JAX_CPU,
-        "ba_windows": [{"kernel": name, "K": K_w, "L": L_w, **row}
-                       for (name, K_w, L_w), row in sorted(by_shape.items())],
+        "ba_windows": windows_by_shape(windows, counts),
         "gravity_to_pose_graphs": grav_pg, "gravity_to_ba_windows": grav_ba,
         "ate_recorded_m": ate_rec, "ate_optimised_m": ate_opt,
         "ate_bound_m": SVI_ATE_BOUND_M,
@@ -2734,6 +2854,343 @@ def run_svi_rectified(device) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# checkpoint and resume; the photometric stress worlds; the stage budget
+# ---------------------------------------------------------------------------
+
+def run_checkpoint_resume(device, keep: dict) -> tuple[dict, dict]:
+    """The SV loop resumed from the checkpoint ``run_slam_loop`` saved after
+    frame 95: ``load_checkpoint`` onto the card must give the saved system's
+    state bit for bit; the resumed system runs frames 96-127 and must record
+    the uninterrupted run's poses bit for bit; then it finishes the loop and
+    the back-end and must pass the loop's accuracy checks. The in-run BoW
+    vocabulary is not in the file (ROADMAP F12): the resumed database trains
+    a new one at its next keyframe over all stored pools, so later closure
+    shortlists may differ from the uninterrupted run's; what differs at frame
+    128 is reported."""
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch.eval import trajectory as ev
+    from svi_mapper_tpu_torch.io.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    tr = load_checkpoint(keep["path"])          # device=None: onto the card
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    roundtrip = snapshot_differences(keep["at_save"], system_snapshot(tr))
+    on_card = tr.state.T_wc.is_cuda and tr.db.desc.is_cuda and tr.db.prob.is_cuda
+    imgs_l, imgs_r = keep["imgs"]
+    seq, ref = keep["seq"], keep["report"]
+    windows = []
+    record_ba_windows(tr, windows)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with stereo_match_calls() as k2_calls, pool_count_calls() as scorings:
+        outs = tr.process_many(imgs_l[CKPT_FRAME:CKPT_END], imgs_r[CKPT_FRAME:CKPT_END],
+                               chunk=LOOP_CHUNK)
+        at_end = system_snapshot(tr)
+        outs += tr.process_many(imgs_l[CKPT_END:], imgs_r[CKPT_END:], chunk=LOOP_CHUNK)
+        tr.finalize_backend()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    got = at_end["trajectory"][CKPT_FRAME:CKPT_END]
+    want = keep["at_end"]["trajectory"][CKPT_FRAME:CKPT_END]
+    differ = [CKPT_FRAME + i for i in range(len(got)) if got[i].tobytes() != want[i].tobytes()]
+    opt = tr.optimized_trajectory()
+    raw = tr.trajectory_array
+    ate_rec, ate_opt = ev.ate_rmse(raw, seq.poses_wc), ev.ate_rmse(opt, seq.poses_wc)
+    closure_err = closure_errors(tr, seq.poses_wc)
+    st = tr.stats
+    report = {
+        "phase": "checkpoint_resume", "saved_after_frame": CKPT_FRAME - 1,
+        "file_mib": keep["path"].stat().st_size / 2 ** 20, "load_seconds": load_s,
+        "roundtrip_fields_compared": len(keep["at_save"]), "roundtrip_differs_in": roundtrip,
+        "on_card": on_card,
+        "resumed_frames": [CKPT_FRAME, CKPT_END - 1], "resumed_frames_differ_at": differ,
+        "state_at_frame_128_differs_in": snapshot_differences(keep["at_end"], at_end),
+        "seconds_resumed_to_end": seconds,
+        "keyframes": len(tr.slam_keyframes), "stats": {k: int(v) for k, v in st.items()},
+        "accepted_closures": [[c.ref_kf, c.query_kf] for c in tr.accepted_closures],
+        "closure_transform_err_m": closure_err,
+        "ate_recorded_m": ate_rec, "ate_optimised_m": ate_opt,
+        "uninterrupted": {k: ref[k] for k in ("keyframes", "stats", "accepted_closures",
+                                              "ate_recorded_m", "ate_optimised_m")},
+        "ate_optimised_minus_uninterrupted_m": ate_opt - ref["ate_optimised_m"],
+        "ba_windows": windows_by_shape(windows, counts),
+        "launches": counts,
+        "match_stereo_calls": k2_calls.calls, "pool_scorings": scorings.calls,
+    }
+    emit(report)
+    require(not roundtrip, f"the checkpoint round trip changed {roundtrip}")
+    require(on_card, "the loaded system is not on the card")
+    require(not differ, f"resumed frames {differ} differ from the uninterrupted run")
+    require(len(outs) == LOOP_FRAMES - CKPT_FRAME and np.isfinite(opt).all(),
+            "the resumed loop did not finish")
+    require(st["closures_accepted"] >= 1 and closure_err
+            and max(closure_err) < LOOP_CLOSURE_ERR_M,
+            f"resumed loop: closures {closure_err} m from the ground truth, {st}")
+    require(ate_opt < LOOP_ATE_BOUND_M, f"resumed loop: optimised ATE {ate_opt} m")
+    require(all(counts[k] > 0 for k in FRONTEND_KERNELS + (CLOSURE_KERNEL,))
+            and counts["schur_assemble"] + counts["schur_assemble_tiled"] > 0,
+            f"kernel not launched on the resumed loop: {counts}")
+    require(counts["stereo_match"] == k2_calls.calls
+            and counts[CLOSURE_KERNEL] == scorings.calls,
+            f"{k2_calls.calls} scanline matches and {scorings.calls} pool scorings "
+            f"against launches {counts}")
+    return report, counts
+
+
+def run_checkpoint_svi(device, keep: dict) -> tuple[dict, dict]:
+    """The stereo-inertial loop resumed from the checkpoint ``run_svi_loop``
+    saved after frame 95: the round trip onto the card bit for bit (the
+    velocity, gravity observations, ``T_cam_imu`` and calibration among the
+    fields), and frames 96-127 resumed bit for bit."""
+    import torch
+
+    from svi_mapper_tpu_torch.io.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    tr = load_checkpoint(keep["path"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    roundtrip = snapshot_differences(keep["at_save"], system_snapshot(tr))
+    svi_fields = sorted(k for k in keep["at_save"] if k.startswith("svi__"))
+    imgs_l, imgs_r = keep["imgs"]
+    dts, oms, acs = keep["blocks"]
+    a, b = CKPT_FRAME, CKPT_END
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with stereo_match_calls() as k2_calls, pool_count_calls() as scorings:
+        tr.process_many_imu(imgs_l[a:b], imgs_r[a:b], dts[a:b], oms[a:b], acs[a:b],
+                            chunk=LOOP_CHUNK)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    at_end = system_snapshot(tr)
+    got, want = at_end["trajectory"][a:b], keep["at_end"]["trajectory"][a:b]
+    differ = [a + i for i in range(len(got)) if got[i].tobytes() != want[i].tobytes()]
+    report = {
+        "phase": "checkpoint_svi", "saved_after_frame": a - 1,
+        "file_mib": keep["path"].stat().st_size / 2 ** 20, "load_seconds": load_s,
+        "roundtrip_fields_compared": len(keep["at_save"]), "svi_fields": svi_fields,
+        "roundtrip_differs_in": roundtrip,
+        "resumed_frames": [a, b - 1], "resumed_frames_differ_at": differ,
+        "velocity_at_frame_128_equal": (at_end["svi__velocity"].tobytes()
+                                        == keep["at_end"]["svi__velocity"].tobytes()),
+        "state_at_frame_128_differs_in": snapshot_differences(keep["at_end"], at_end),
+        "seconds": seconds, "launches": counts,
+        "match_stereo_calls": k2_calls.calls, "pool_scorings": scorings.calls,
+    }
+    emit(report)
+    require(len(svi_fields) == 9, f"stereo-inertial fields compared: {svi_fields}")
+    require(not roundtrip, f"the checkpoint round trip changed {roundtrip}")
+    require(tr.velocity.is_cuda and tr.state.T_wc.is_cuda, "the loaded tracker is not on the card")
+    require(not differ, f"resumed frames {differ} differ from the uninterrupted run")
+    require(all(counts[k] > 0 for k in FRONTEND_KERNELS)
+            and counts["stereo_match"] == k2_calls.calls
+            and counts[CLOSURE_KERNEL] == scorings.calls,
+            f"kernels on the resumed frames: {counts}, {k2_calls.calls} scanline matches, "
+            f"{scorings.calls} pool scorings")
+    return report, counts
+
+
+# the JAX package's SLAMSystem on the same stressed loop on a CPU
+# (compare_stress_loop.py jax): behaviour to compare and the ATE the port's
+# run is bounded by (at most STRESS_ATE_FACTOR times), no time taken from it
+STRESS_JAX_CPU = {"keyframes": 44, "closures_accepted": 2, "accepted_closures": [[1, 38], [5, 43]],
+                  "ate_recorded_m": 0.190212555750364, "ate_optimised_m": 0.19231380532112904}
+STRESS_ATE_FACTOR = 2.0
+STRESS_MIN_TRACKED = 40        # tests/test_stress.py's bound, from frame 5 on
+ALIAS_FRAMES, ALIAS_PERIOD_M = 160, 24.0
+
+
+def wall_crossings(poses, reach: int):
+    """Frames where the loop passes the plane of the corridor's wall at
+    x = 9 m, and the frames within ``reach`` of one."""
+    import numpy as np
+
+    centres = -np.einsum("nji,nj->ni", poses[:, :3, :3], poses[:, :3, 3])
+    side = centres[:, 0] > 9.0
+    crossings = [i for i in range(1, len(poses)) if side[i] != side[i - 1]]
+    return crossings, {i + d for i in crossings for d in range(-reach, reach + 1)}
+
+
+def run_stress_loop(device) -> tuple[dict, dict]:
+    """The SV loop of ``slam_loop`` rendered with the moderate photometric
+    stress (``io.stress.StressedSequence``: read noise, exposure and gamma
+    drift, blur, vignetting, a blank-wall span, sheen, an occluder panel)
+    on the card, through ``SLAMSystem.process_many(chunk=32)`` ->
+    ``finalize_backend()``, as ``tests/test_stress.py`` holds the JAX
+    package: at least 40 landmarks tracked from frame 5 on (but within two
+    frames of a wall crossing, where the JAX package too drops below), at
+    least one closure within 0.5 m of the truth, and the recorded and
+    optimised ATE at most twice the JAX package's on the same loop."""
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
+    from svi_mapper_tpu_torch.eval import trajectory as ev
+    from svi_mapper_tpu_torch.io.stress import StressedSequence
+    from svi_mapper_tpu_torch.models.slam import SLAMSystem
+
+    params = dataclasses.replace(
+        DEFAULT_PARAMS, max_landmarks=N_LANDMARKS, max_detections=N_LANDMARKS,
+        keyframe_translation_m2=4.0, keyframe_rotation_rad2=0.02,
+        max_motion_scaling_for_optimization=2.5)
+    seq = StressedSequence(n_frames=LOOP_FRAMES, width=W_RAW, height=H, trajectory="loop",
+                           loop_radius=LOOP_RADIUS, stress="moderate", device=device)
+    t0 = time.perf_counter()
+    imgs_l = torch.empty((LOOP_FRAMES, H, W_RAW), dtype=torch.float32, device=device)
+    imgs_r = torch.empty_like(imgs_l)
+    for i in range(LOOP_FRAMES):
+        imgs_l[i], imgs_r[i], _ = seq.frame(i)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    slam = SLAMSystem(seq.cam, params, device=device)
+    windows = []
+    record_ba_windows(slam, windows)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with stereo_match_calls() as k2_calls, pool_count_calls() as scorings:
+        outs = slam.process_many(imgs_l, imgs_r, chunk=LOOP_CHUNK)
+        slam.finalize_backend()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    opt = slam.optimized_trajectory()
+    raw = slam.trajectory_array
+    ate_rec, ate_opt = ev.ate_rmse(raw, seq.poses_wc), ev.ate_rmse(opt, seq.poses_wc)
+    crossings, near_wall = wall_crossings(seq.poses_wc, 2)
+    tracked = [int(o.n_tracked) for o in outs]
+    low = {i: n for i, n in enumerate(tracked) if i >= 5 and n < STRESS_MIN_TRACKED}
+    closure_err = closure_errors(slam, seq.poses_wc)
+    st = slam.stats
+    report = {
+        "phase": "stress_loop", "stress": "moderate", "frames": LOOP_FRAMES,
+        "image": [H, W_RAW], "chunk": LOOP_CHUNK, "render_seconds": render_s,
+        "seconds": seconds, "frames_per_s": LOOP_FRAMES / seconds,
+        "keyframes": len(slam.slam_keyframes), "stats": {k: int(v) for k, v in st.items()},
+        "accepted_closures": [[c.ref_kf, c.query_kf] for c in slam.accepted_closures],
+        "closure_transform_err_m": closure_err,
+        "ate_recorded_m": ate_rec, "ate_optimised_m": ate_opt,
+        "jax_package_cpu": STRESS_JAX_CPU, "ate_factor_bound": STRESS_ATE_FACTOR,
+        "n_tracked_min_from_frame_5": min(tracked[5:]),
+        "frames_tracked_below_bound": low, "wall_crossings_at_frames": crossings,
+        "posit_rejected_at_frames": [i for i, o in enumerate(outs[1:], 1)
+                                     if not bool(o.posit_ok)],
+        "ba_windows": windows_by_shape(windows, counts),
+        "launches": counts,
+        "match_stereo_calls": k2_calls.calls, "pool_scorings": scorings.calls,
+    }
+    emit(report)
+    require(len(outs) == LOOP_FRAMES and np.isfinite(opt).all(), "stressed loop: poses")
+    bad = {i: n for i, n in low.items() if i not in near_wall}
+    require(not bad, f"stressed loop: fewer than {STRESS_MIN_TRACKED} landmarks tracked at "
+            f"{bad} (wall crossings at {crossings})")
+    require(st["closures_accepted"] >= 1 and closure_err
+            and min(closure_err) < LOOP_CLOSURE_ERR_M,
+            f"stressed loop: closures {closure_err} m from the ground truth, {st}")
+    for key, got in (("ate_recorded_m", ate_rec), ("ate_optimised_m", ate_opt)):
+        require(got <= STRESS_ATE_FACTOR * STRESS_JAX_CPU[key],
+                f"stressed loop: {key} {got} m against the JAX package's "
+                f"{STRESS_JAX_CPU[key]} m")
+    require(all(counts[k] > 0 for k in FRONTEND_KERNELS + (CLOSURE_KERNEL,))
+            and counts["schur_assemble"] + counts["schur_assemble_tiled"] > 0,
+            f"kernel not launched on the stressed loop: {counts}")
+    require(counts["stereo_match"] == k2_calls.calls
+            and counts[CLOSURE_KERNEL] == scorings.calls,
+            f"{k2_calls.calls} scanline matches and {scorings.calls} pool scorings "
+            f"against launches {counts}")
+    return report, counts
+
+
+def run_stress_alias(device) -> tuple[dict, dict]:
+    """The aliased corridor of ``tests/test_stress.py``: 160 frames at 512 x
+    256 of a straight corridor whose texture repeats every 24 m, probabilistic
+    closure matching, local BA and loop closure on. Every place has a
+    pixel-identical twin 24 and 48 m away and no place is revisited, so any
+    accepted closure is a false one: none may be accepted."""
+    import torch
+
+    from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
+    from svi_mapper_tpu_torch.io import synthetic
+    from svi_mapper_tpu_torch.models.slam import SLAMSystem
+
+    params = dataclasses.replace(
+        DEFAULT_PARAMS, max_landmarks=512, max_detections=512,
+        keyframe_translation_m2=9.0, closure_probabilistic=True)
+    seq = synthetic.SyntheticSequence(n_frames=ALIAS_FRAMES, width=512, height=256,
+                                      step=0.4, alias_period=ALIAS_PERIOD_M, device=device)
+    imgs = [seq.frame(i) for i in range(ALIAS_FRAMES)]
+    imgs_l = torch.stack([f[0] for f in imgs])
+    imgs_r = torch.stack([f[1] for f in imgs])
+    slam = SLAMSystem(seq.cam, params, enable_local_ba=True, enable_loop_closure=True,
+                      device=device)
+    windows = []
+    record_ba_windows(slam, windows)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with stereo_match_calls() as k2_calls, pool_count_calls() as scorings:
+        slam.process_many(imgs_l, imgs_r, chunk=16)
+        slam.finalize_backend()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    st = slam.stats
+    report = {
+        "phase": "stress_alias", "frames": ALIAS_FRAMES, "image": [256, 512],
+        "alias_period_m": ALIAS_PERIOD_M, "closure_probabilistic": True,
+        "seconds": seconds, "keyframes": len(slam.slam_keyframes),
+        "stats": {k: int(v) for k, v in st.items()},
+        "accepted_closures": [[c.ref_kf, c.query_kf] for c in slam.accepted_closures],
+        "ba_windows": windows_by_shape(windows, counts),
+        "launches": counts,
+        "match_stereo_calls": k2_calls.calls, "pool_scorings": scorings.calls,
+    }
+    emit(report)
+    require(len(slam.slam_keyframes) >= 12, f"{len(slam.slam_keyframes)} keyframes")
+    require(st["closures_accepted"] == 0,
+            f"false closures accepted in the aliased corridor: {report['accepted_closures']}")
+    require(all(counts[k] > 0 for k in FRONTEND_KERNELS + (CLOSURE_KERNEL,))
+            and counts["stereo_match"] == k2_calls.calls
+            and counts[CLOSURE_KERNEL] == scorings.calls,
+            f"kernels on the aliased corridor: {counts}, {k2_calls.calls} scanline "
+            f"matches, {scorings.calls} pool scorings")
+    return report, counts
+
+
+STAGES = ("dense_brief_x2", "tracking_window", "stereo_rematch", "posit_gn",
+          "regional_recovery", "landmark_gn", "detect_corners", "ba_window_10lm",
+          "ba_window_prep", "pose_graph_64kf", "closure_match_icp", "closure_query_fused")
+
+
+def run_stage_budget(device, smi: str) -> tuple[dict, dict]:
+    """``eval.stage_bench.stage_budget()`` at 1241 x 376 on the card: each
+    stage timed alone between two synchronisations, ten calls (five for BA
+    and the pose graph)."""
+    import math
+
+    from svi_mapper_tpu_torch.eval import stage_bench
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    budget = stage_bench.stage_budget(width=W_RAW, height=H, reps=10, device=device)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    report = {"phase": "stage_budget", "card": smi, "image": [H, W_RAW],
+              "ms": budget, "table": stage_bench.format_budget(budget).splitlines(),
+              "seconds": seconds, "launches": counts}
+    emit(report)
+    require(tuple(budget) == STAGES and all(math.isfinite(v) and v > 0
+                                            for v in budget.values()),
+            f"stage budget: {budget}")
+    require(all(counts[k] > 0 for k in FRONTEND_KERNELS + ("schur_assemble", CLOSURE_KERNEL)),
+            f"kernel not launched by the stage budget: {counts}")
+    return report, counts
+
+
 def main() -> int:
     import torch
 
@@ -2824,19 +3281,35 @@ def main() -> int:
     emit(report)
     report, query_counts = run_closure_query(device)
     emit(report)
-    loop, loop_counts = run_slam_loop(device)     # emits its own line
+    ckdir = tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR)
+    loop_keep = {"path": Path(ckdir.name) / "slam_loop.npz"}
+    svi_keep = {"path": Path(ckdir.name) / "svi_loop.npz"}
+    # the loops save a checkpoint after frame 95 (left out of their times)
+    loop, loop_counts = run_slam_loop(device, keep=loop_keep)     # emits its own line
     # 6. the stereo-inertial path: card against CPU, the real-data front at
     #    the VI sensor's size, the bench loop (each with its counts set to 0
     #    just before it and read just after)
     emit({"phase": "svi_gpu_vs_cpu", **check_svi_against_cpu(device)})
     run_svi_rectified(device)                       # emits its own line
-    svi, svi_counts = run_svi_loop(device)          # emits its own line
-    # every BA window of both loops has a shape at which K4 / K5 were held
+    svi, svi_counts = run_svi_loop(device, keep=svi_keep)        # emits its own line
+    # 7. checkpoint and resume of both loops; the stress worlds; the stage
+    #    budget (each with its counts set to 0 just before it, read after)
+    loop_keep["report"] = loop
+    resume, resume_counts = run_checkpoint_resume(device, loop_keep)
+    svi_resume, svi_resume_counts = run_checkpoint_svi(device, svi_keep)
+    del loop_keep, svi_keep
+    ckdir.cleanup()
+    torch.cuda.empty_cache()
+    stress, stress_counts = run_stress_loop(device)
+    alias, alias_counts = run_stress_alias(device)
+    stage, stage_counts = run_stage_budget(device, smi)
+    # every BA window of the loops has a shape at which K4 / K5 were held
     # against their plain versions: the expected ones in the kernel phase
     # above, any other one now
     at_shape = {(k["name"], k["K"], k["L"]): k for k in backend
                 if "ms" in k and not k["padded"]}
-    loop_windows = loop["ba_windows"] + svi["ba_windows"]
+    loop_windows = (loop["ba_windows"] + svi["ba_windows"] + resume["ba_windows"]
+                    + stress["ba_windows"] + alias["ba_windows"])
     late = sorted({(w["kernel"], w["K"], w["L"]) for w in loop_windows
                    if (w["kernel"], w["K"], w["L"]) not in at_shape})
     for shape in late:
@@ -2879,6 +3352,11 @@ def main() -> int:
             "launches_slam_loop": loop_counts[k["name"]],
             "launches_svi_loop": svi_counts[k["name"]],
             "launches_closure_query": query_counts[k["name"]],
+            "launches_checkpoint_resume": resume_counts[k["name"]],
+            "launches_checkpoint_svi": svi_resume_counts[k["name"]],
+            "launches_stress_loop": stress_counts[k["name"]],
+            "launches_stress_alias": alias_counts[k["name"]],
+            "launches_stage_budget": stage_counts[k["name"]],
             "on_path": k["name"] not in OFF_PATH_ENTRIES,
         }
         for extra in ("launch_only_ms", "rel_err_vs_plain", "K", "L", "flops",
@@ -2898,7 +3376,9 @@ def main() -> int:
             row["pixels_scored_per_landmark_slam_loop"] = \
                 loop["track_scores_on_path"]["pixels_scored_per_landmark"]
         if k["name"] in BACKEND_KERNELS:
-            for key, path in (("at_slam_loop", loop), ("at_svi_loop", svi)):
+            for key, path in (("at_slam_loop", loop), ("at_svi_loop", svi),
+                              ("at_checkpoint_resume", resume), ("at_stress_loop", stress),
+                              ("at_stress_alias", alias)):
                 row[key] = [
                     {"K": w["K"], "L": w["L"], "windows": w["windows"],
                      "launches": w["launches"],

@@ -150,25 +150,28 @@ def load_camera_calibration(path: str | Path) -> CameraCalibration:
     )
 
 def camera_from_calibration(
-    calib: CameraCalibration, device: torch.device | str | None = None
+    calib: CameraCalibration, dtype=np.float32,
+    device: torch.device | str | None = None,
 ) -> PinholeCamera:
+    """``dtype`` (numpy or torch) is the camera matrices' dtype."""
     return pinhole_from_projection(
         calib.P, calib.width, calib.height, K=calib.K, dist=calib.dist,
-        R_rect=calib.R_rect, device=device,
+        R_rect=calib.R_rect, dtype=dtype, device=device,
     )
 
 
 def load_stereo_camera(
-    left_path: str | Path, right_path: str | Path,
+    left_path: str | Path, right_path: str | Path, dtype=np.float32,
     device: torch.device | str | None = None,
 ) -> StereoCamera:
     """Build a rectified stereo camera from two calibration files
     (ref CParameterBase constructCameraSTEREO, tracker_gt.cpp:121-123;
     the baseline lives in P_right[0,3] = -fx*b, e.g. -386.1448 for KITTI 00
-    -> b = 0.537 m). ``device=None`` means CUDA."""
+    -> b = 0.537 m). ``dtype`` (numpy or torch) is the matrices' dtype,
+    float32 by default. ``device=None`` means CUDA."""
     device = resolve_device(device)
-    left = camera_from_calibration(load_camera_calibration(left_path), device)
-    right = camera_from_calibration(load_camera_calibration(right_path), device)
+    left = camera_from_calibration(load_camera_calibration(left_path), dtype, device)
+    right = camera_from_calibration(load_camera_calibration(right_path), dtype, device)
     return StereoCamera(left=left, right=right)
 
 

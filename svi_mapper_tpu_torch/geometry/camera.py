@@ -38,7 +38,7 @@ class PinholeCamera:
     R_rect: torch.Tensor     # (3, 3) rectification rotation
     width: int = 0
     height: int = 0
-    # float32 values of P as Python floats (filled from P when left None)
+    # values of P (in P's dtype) as Python floats (filled from P when left None)
     fx: float = None
     fy: float = None
     cx: float = None
@@ -47,7 +47,7 @@ class PinholeCamera:
 
     def __post_init__(self):
         if self.fx is None:
-            P = self.P.detach().to("cpu", torch.float32).numpy()
+            P = self.P.detach().cpu().numpy()
             for name, val in (("fx", P[0, 0]), ("fy", P[1, 1]),
                               ("cx", P[0, 2]), ("cy", P[1, 2]),
                               ("p03", P[0, 3])):
@@ -154,25 +154,37 @@ class StereoCamera:
         return torch.stack([x, y, z], dim=-1)
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    """A numpy or torch floating dtype (``np.float32``, ``"float64"``,
+    ``torch.float32`` ...) as the torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
 def pinhole_from_projection(
     P, width: int, height: int, K=None, dist=None, R_rect=None,
-    device: torch.device | str | None = None,
+    dtype=np.float32, device: torch.device | str | None = None,
 ) -> PinholeCamera:
     """Build a camera from a 3x4 projection matrix (KITTI-style
-    calibration, the ``matProjection`` line of the calibration files)."""
+    calibration, the ``matProjection`` line of the calibration files).
+    ``dtype`` (numpy or torch) is the matrices' dtype, float32 by default;
+    the cached ``fx, fy, cx, cy, p03`` hold the values in that dtype."""
     device = resolve_device(device)
+    dt = torch_dtype(dtype)
+    np_dt = torch.zeros(0, dtype=dt).numpy().dtype
 
     def t(a, shape):
-        a = np.asarray(a, dtype=np.float64).astype(np.float32).reshape(-1)
+        a = np.asarray(a, dtype=np.float64).astype(np_dt).reshape(-1)
         return torch.from_numpy(a[: int(np.prod(shape))].reshape(shape).copy()).to(device)
 
     P_t = t(P, (3, 4))
     return PinholeCamera(
         P=P_t,
         K=P_t[:, :3].clone() if K is None else t(K, (3, 3)),
-        dist=torch.zeros(4, dtype=torch.float32, device=device)
+        dist=torch.zeros(4, dtype=dt, device=device)
         if dist is None else t(dist, (4,)),
-        R_rect=torch.eye(3, dtype=torch.float32, device=device)
+        R_rect=torch.eye(3, dtype=dt, device=device)
         if R_rect is None else t(R_rect, (3, 3)),
         width=int(width),
         height=int(height),

@@ -168,28 +168,42 @@ def raycast(T_wc: torch.Tensor, fx: float, cx: float, cy: float,
     return o, dir_w, best_t
 
 
+def fold_mod(x: torch.Tensor, period: float) -> torch.Tensor:
+    """``x`` modulo ``period`` with the sign of the period, as ``jnp.mod``
+    computes it: the exact truncated remainder, shifted by one period where
+    its sign differs from the period's."""
+    r = torch.fmod(x, period)
+    return torch.where((r != 0) & ((r < 0) != (period < 0)), r + period, r)
+
+
 def render_view(T_wc: torch.Tensor, fx: float, cx: float, cy: float,
                 baseline_shift: float, width: int, height: int,
-                planes=None) -> torch.Tensor:
+                alias_period: float = 0.0, planes=None) -> torch.Tensor:
     """Render one camera view of the plane world. ``baseline_shift`` is the
     camera-center x-offset in the LEFT camera frame (0 for left, +baseline
-    for right)."""
+    for right). With ``alias_period > 0`` the texture is evaluated on the
+    world-z coordinate folded modulo the period: the corridor repeats the
+    SAME visual motif every ``alias_period`` meters — geographically
+    distinct places that look identical, the perceptual-aliasing attack a
+    loop-closure pipeline's precision gates must survive."""
     o, dir_w, best_t = raycast(T_wc, fx, cx, cy, baseline_shift, width, height,
                                planes)
     hit_w = o[None, None, :] + best_t[..., None] * dir_w
+    if alias_period > 0.0:
+        hit_w = torch.cat([hit_w[..., :2], fold_mod(hit_w[..., 2:], alias_period)], -1)
     img = _texture(hit_w)
     return torch.where(torch.isfinite(best_t), img, torch.zeros_like(img))
 
 
-def render_stereo(cam: StereoCamera, T_wc, planes=None):
+def render_stereo(cam: StereoCamera, T_wc, alias_period: float = 0.0, planes=None):
     """Render the (left, right) pair for a world->LEFT-camera pose, on the
     camera's device."""
     T_wc = torch.as_tensor(T_wc, dtype=torch.float32).to(cam.device)
     fx = cam.left.fx
     imgL = render_view(T_wc, fx, cam.left.cx, cam.left.cy, 0.0,
-                       cam.width, cam.height, planes)
+                       cam.width, cam.height, alias_period, planes)
     imgR = render_view(T_wc, fx, cam.right.cx, cam.right.cy, cam.baseline,
-                       cam.width, cam.height, planes)
+                       cam.width, cam.height, alias_period, planes)
     return imgL, imgR
 
 
@@ -232,12 +246,13 @@ def loop_trajectory(n_frames: int, radius: float = 5.0,
 class SyntheticSequence:
     """Iterable stereo sequence with ground truth (the fixture generator).
     ``world`` is a plane tuple such as :func:`ring_world`; None means the
-    corridor. (The JAX package's ``alias_period`` is not ported.)"""
+    corridor. ``alias_period > 0`` repeats the texture along world z (see
+    :func:`render_view`)."""
 
     def __init__(self, n_frames: int = 40, width: int = 512, height: int = 256,
                  step: float = 0.8, yaw_amp: float = 0.003,
                  trajectory: str = "corridor", loop_radius: float = 5.0,
-                 world: tuple | None = None,
+                 alias_period: float = 0.0, world: tuple | None = None,
                  device: torch.device | str | None = None):
         self.cam = default_camera(width, height, device=device)
         self.world = world
@@ -249,9 +264,11 @@ class SyntheticSequence:
         else:
             raise ValueError(f"unknown trajectory {trajectory!r}")
         self.n_frames = n_frames
+        self.alias_period = alias_period
 
     def frame(self, i: int):
-        imgL, imgR = render_stereo(self.cam, self.poses_wc[i], self.world)
+        imgL, imgR = render_stereo(self.cam, self.poses_wc[i], self.alias_period,
+                                   self.world)
         return imgL, imgR, self.poses_wc[i]
 
     def __iter__(self):

@@ -92,6 +92,13 @@ def words_to_numpy(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.detach().cpu().numpy()).view(np.uint32)
 
 
+def words_u32(a) -> np.ndarray:
+    """Packed words in numpy, uint32 or int32 bit patterns -> uint32 with the
+    same bits (the files' and the JAX package's dtype)."""
+    a = np.ascontiguousarray(a)
+    return a.view(np.uint32) if a.dtype == np.int32 else a.astype(np.uint32)
+
+
 def popcount32(x: torch.Tensor) -> torch.Tensor:
     """Per-word population count of int32 bit patterns (SWAR; PyTorch has
     no popcount op). Every arithmetic right shift is followed by a mask
@@ -318,6 +325,65 @@ def round_pixel(uv: torch.Tensor, h: int, w: int, dtype=torch.int32):
     x = torch.clamp(torch.round(uv[..., 0]), 0, w - 1).to(dtype)
     y = torch.clamp(torch.round(uv[..., 1]), 0, h - 1).to(dtype)
     return x, y
+
+
+# flattened indices of the pattern's pairs into a 32*32 patch (row-major [v, u])
+_IDX_A = _PATTERN_A[:, 1] * PATCH_SIZE + _PATTERN_A[:, 0]
+_IDX_B = _PATTERN_B[:, 1] * PATCH_SIZE + _PATTERN_B[:, 0]
+
+
+def extract_patches(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Cut a 32x32 patch around each keypoint (clamped inside the image).
+
+    Args:
+      img: [H, W] float32 (already smoothed).
+      uv: [K, 2] float32 keypoint centers (u=x, v=y); rounded half to even,
+        a NaN coordinate taken as 0.
+
+    Returns: [K, 32, 32] float32 patches.
+    """
+    h, w = img.shape
+    uv = torch.nan_to_num(uv, nan=0.0)
+    top = torch.clamp(torch.round(uv[:, 1]) - PATCH_HALF, 0, h - PATCH_SIZE).to(torch.int64)
+    left = torch.clamp(torch.round(uv[:, 0]) - PATCH_HALF, 0, w - PATCH_SIZE).to(torch.int64)
+    r = torch.arange(PATCH_SIZE, device=img.device)
+    return img[(top[:, None] + r)[:, :, None], (left[:, None] + r)[:, None, :]]
+
+
+def brief_descriptors(img_smooth: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Extract packed BRIEF descriptors for a keypoint batch.
+
+    Args:
+      img_smooth: [H, W] float32 smoothed image.
+      uv: [K, 2] float32 keypoints.
+
+    Returns: [K, 8] int32 packed 256-bit descriptors (the JAX package's
+    uint32 bits).
+    """
+    patches = extract_patches(img_smooth, uv)            # [K, 32, 32]
+    flat = patches.reshape(patches.shape[0], -1)         # [K, 1024]
+    dev = img_smooth.device
+    pa = flat[:, torch.from_numpy(_IDX_A).to(dev)]       # [K, 256]
+    pb = flat[:, torch.from_numpy(_IDX_B).to(dev)]
+    return pack_bits(pa < pb)                            # BRIEF test
+
+
+def brief_descriptors_at_offsets(
+    img_smooth: torch.Tensor, uv: torch.Tensor, offsets: torch.Tensor
+) -> torch.Tensor:
+    """Descriptors at ``uv[k] + offsets[c]`` for every (keypoint, candidate)
+    — all K x C candidate locations described in one batch (the reference
+    extracts BRIEF along sampled curve points,
+    CFundamentalMatcher.cpp:2142-2397).
+
+    Args:
+      img_smooth: [H, W]; uv: [K, 2]; offsets: [C, 2].
+
+    Returns: [K, C, 8] int32.
+    """
+    k, c = uv.shape[0], offsets.shape[0]
+    all_uv = (uv[:, None, :] + offsets[None, :, :]).reshape(k * c, 2)
+    return brief_descriptors(img_smooth, all_uv).reshape(k, c, DESCRIPTOR_WORDS)
 
 
 def brief_at(dense: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:

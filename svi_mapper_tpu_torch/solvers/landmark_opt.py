@@ -141,6 +141,61 @@ def _refine_soa(table, fx, fy, cx, cy, bq,
     return p_stack, inlier_ratio, avg_err, ok_geom
 
 
+def _idwa_positions(table, fx, fy, cx, cy, bq):
+    """[L,3] inverse-depth-weighted average of the measurement
+    back-projections — the reference's ``_getOptimizedLandmarkIDWA``
+    (CLandmark.cpp:583-646). The reference's 3D-point GN alternate
+    ``_getOptimizedLandmarkLEFT3D`` (:347-445) has the (robust) MEAN of the
+    same back-projections as its stationary point — the unweighted special
+    case of this average — so one implementation covers both dormant
+    alternates. Used as the degenerate-geometry fallback when the STEREOUV
+    GN fails its gates."""
+    uv = table.meas_uv                                   # [L,M,4]
+    disp = uv[..., 0] - uv[..., 2]
+    z = torch.where(disp > 0.01, -bq / torch.clamp(disp, min=0.01),
+                    torch.full_like(disp, float("inf")))
+    x = (uv[..., 0] - cx) * z / fx
+    y = (uv[..., 1] - cy) * z / fy
+    p_c = torch.stack([x, y, z], -1)                     # [L,M,3]
+    R = table.meas_T_wc[..., :3, :3]                     # [L,M,3,3]
+    t = table.meas_T_wc[..., :3, 3]
+    mask = measurement_mask(table)                       # [L,M]
+    ok = mask & torch.isfinite(z) & (z > 0.05)
+    w = torch.where(ok, 1.0 / torch.clamp(z, min=0.05), torch.zeros_like(z))
+    d = torch.where(ok[..., None], p_c, torch.zeros_like(p_c)) - t
+    # R^T d, products and sums in the contraction's order
+    p_w = torch.stack([R[..., 0, i] * d[..., 0] + R[..., 1, i] * d[..., 1]
+                       + R[..., 2, i] * d[..., 2] for i in range(3)], dim=-1)
+    wsum = torch.clamp(torch.sum(w, dim=1), min=1e-9)
+    return torch.sum(w[..., None] * p_w, dim=1) / wsum[:, None]
+
+
+def _evaluate_at(table, p, fx, fy, cx, cy, bq, kernel_px2):
+    """Acceptance-gate statistics of candidate positions ``p`` [L,3]:
+    (inlier_ratio [L], avg_err [L], ok_geom [L])."""
+    R = table.meas_T_wc[..., :3, :3]                     # [L,M,3,3]
+    pl = p[:, None, :]
+    p_c = torch.stack([R[..., i, 0] * pl[..., 0] + R[..., i, 1] * pl[..., 1]
+                       + R[..., i, 2] * pl[..., 2] for i in range(3)], dim=-1) \
+        + table.meas_T_wc[..., :3, 3]                    # [L,M,3]
+    x, y, z = p_c[..., 0], p_c[..., 1], p_c[..., 2]
+    safe_z = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
+    iz = 1.0 / safe_z
+    u_l = fx * x * iz + cx
+    v_l = fy * y * iz + cy
+    u_r = (fx * x + bq) * iz + cx
+    uv = table.meas_uv
+    err2 = ((u_l - uv[..., 0]) ** 2 + (v_l - uv[..., 1]) ** 2
+            + (u_r - uv[..., 2]) ** 2 + (v_l - uv[..., 3]) ** 2)
+    usable = measurement_mask(table).to(p.dtype) * (z > 0.05)
+    n_raw = torch.sum(usable, dim=1)
+    n = torch.clamp(n_raw, min=1.0)
+    inlier_ratio = torch.sum(usable * (err2 < kernel_px2), dim=1) / n
+    avg_err = torch.sum(torch.where(usable > 0, err2, torch.zeros_like(err2)), dim=1) / n
+    ok_geom = torch.all(torch.isfinite(p), dim=-1) & (n_raw > 0)
+    return inlier_ratio, avg_err, ok_geom
+
+
 def optimize_landmarks(
     table: LandmarkTable,
     cam: StereoCamera,
@@ -159,10 +214,12 @@ def optimize_landmarks(
     CFundamentalMatcher.cpp:265 -> CLandmark.cpp:447-581). Positions update
     only for landmarks passing the gates; success/failure counters and
     ``is_optimal`` update exactly as the reference's lifecycle does.
+
+    ``idwa_fallback`` (opt-in, ``TrackingParams.landmark_idwa_fallback``):
+    a landmark whose GN fails its gates is tried at the inverse-depth-
+    weighted average of its measurement back-projections, and passes there
+    under the same gates.
     """
-    if idwa_fallback:
-        raise NotImplementedError(
-            "the IDWA landmark-refinement fallback is not ported yet")
     fx, fy = cam.left.fx, cam.left.fy
     cx, cy = cam.left.cx, cam.left.cy
     bq = cam.right.p03
@@ -177,6 +234,18 @@ def optimize_landmarks(
         & (inlier_ratio > min_inlier_ratio)
         & (avg_err < max_error_px2)
     )
+    if idwa_fallback:
+        # degenerate-geometry fallback (the reference's dormant alternates
+        # _getOptimizedLandmarkLEFT3D / _getOptimizedLandmarkIDWA,
+        # CLandmark.cpp:347-445,583-646): it ignores the (possibly
+        # ill-conditioned) GN landscape and passes exactly when the raw
+        # measurements agree
+        p_idwa = _idwa_positions(table, fx, fy, cx, cy, bq)
+        ir2, ae2, ok2 = _evaluate_at(table, p_idwa, fx, fy, cx, cy, bq, kernel_px2)
+        idwa_ok = (eligible & ~success & ok2
+                   & (ir2 > min_inlier_ratio) & (ae2 < max_error_px2))
+        p_stack = torch.where(idwa_ok[:, None], p_idwa, p_stack)
+        success = success | idwa_ok
     return table.replace(
         pos_w=torch.where(success[:, None], p_stack, table.pos_w),
         is_optimal=torch.where(eligible, success, table.is_optimal),

@@ -35,7 +35,8 @@ def test_module_layout_mirrors_the_jax_package():
         "solvers.icp", "mapping.bitstats", "mapping.vocabulary",
         "mapping.closure", "models.slam", "io.g2o_export", "ops.paths",
         "imu.interpolator", "io.euroc", "io.kitti", "eval.trajectory", "models.svi",
-        "tools.run_euroc",
+        "tools.run_euroc", "geometry.triangulation", "io.cloud", "io.checkpoint",
+        "io.stress", "eval.timing", "eval.stage_bench", "utils.faults", "utils.loggers",
     }
     have = {m.removeprefix("svi_mapper_tpu_torch.") for m in MODULES}
     assert expected <= have

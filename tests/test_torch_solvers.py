@@ -176,7 +176,31 @@ def test_landmark_gn_iteration_cap(rng):
 
 
 def test_idwa_fallback_not_ported(rng):
-    jcam, jtable, _ = _gn_table(rng, L=8)
-    with pytest.raises(NotImplementedError):
-        landmark_opt.optimize_landmarks(torch_table(jtable), torch_camera(jcam),
-                                        idwa_fallback=True)
+    """The IDWA fallback (the name is kept from when it raised): with one GN
+    iteration from 0.5 m off, some landmarks fail the GN's gates and are
+    rescued at the inverse-depth-weighted average of their back-projections;
+    the flags and counters equal the JAX package's, positions within the
+    GN tolerance above."""
+    jcam, jtable, p_true = _gn_table(rng, garbage=4)
+    plain, _ = _gn_both(jcam, jtable, max_iterations=1)
+    got, _ = _gn_both(jcam, jtable, max_iterations=1, idwa_fallback=True)
+    rescued = got.is_optimal.numpy() & ~plain.is_optimal.numpy()
+    assert rescued.sum() >= 3
+    assert not got.is_optimal.numpy()[:4].any()          # garbage stays out
+    assert np.median(np.linalg.norm(got.pos_w.numpy()[rescued] - p_true[rescued],
+                                    axis=-1)) < 0.5
+    # the two internals on their own, against the JAX functions
+    ttable, tcam = torch_table(jtable), torch_camera(jcam)
+    args = (float(tcam.left.fx), float(tcam.left.fy), float(tcam.left.cx),
+            float(tcam.left.cy), float(tcam.right.p03))
+    jargs = (jcam.left.fx, jcam.left.fy, jcam.left.cx, jcam.left.cy, jcam.right.P[0, 3])
+    p_t = landmark_opt._idwa_positions(ttable, *args)
+    p_j = np.asarray(jlopt._idwa_positions(jtable, *jargs))
+    np.testing.assert_allclose(p_t.numpy(), p_j, rtol=1e-5, atol=1e-4)
+    ev_t = landmark_opt._evaluate_at(ttable, t32(p_j), *args, 10.0)
+    ev_j = jlopt._evaluate_at(jtable, jnp.asarray(p_j), *jargs, 10.0)
+    np.testing.assert_array_equal(ev_t[2].numpy(), np.asarray(ev_j[2]))
+    # the inlier ratio exactly; the mean squared error (px^2) to 1e-3: the
+    # float32 transform of a 60 m point moves a projection by ~1e-4 px
+    np.testing.assert_array_equal(ev_t[0].numpy(), np.asarray(ev_j[0]))
+    np.testing.assert_allclose(ev_t[1].numpy(), np.asarray(ev_j[1]), rtol=1e-4, atol=1e-3)
