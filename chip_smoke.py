@@ -70,7 +70,25 @@ one CUDA card, ``nvcc`` and nothing from the network. It
    (``io.stress.StressedSequence``) with the JAX package's accuracy gates
    of ``tests/test_stress.py`` (``stress_loop``) and the aliased corridor,
    which must accept no closure (``stress_alias``); and prints the stage
-   budget of ``eval.stage_bench`` at 1241 x 376 (``stage_budget``).
+   budget of ``eval.stage_bench`` at 1241 x 376 (``stage_budget``);
+8. drives the worker threads and the native runtime: the bench loop with
+   the closure search on its worker (``async_closure``: the revisits
+   ``slam_loop`` accepted, within 0.5 m, ATE < 0.5 m, K6's pool count on the
+   worker) and with the whole keyframe tail on the back-end worker
+   (``overlap_backend``, ``"force"``: closures, pose graph and BA ran, every
+   future drained, ATE within the JAX tests' band of ``slam_loop``'s, K4 and
+   K6 on the worker; ``True`` on the one card warns and runs synchronously),
+   each with frames/s and the card's idle share (``nvidia-smi``'s
+   utilization, sampled) beside ``slam_loop``'s; the C++ runtime built from
+   ``native/src`` (``native_runtime``: the closure database with the native
+   tree and no vocabulary, card == CPU, no decoy accepted, exact matching
+   launching K6's matrix; the loop's first 32 frames through
+   ``tools/make_dump`` and ``DumpReader(prefetch=4)``, tracked to the same
+   bits as from memory; a ``.svic`` round trip of the clouds of that
+   replay's state); and
+   ``tools/create_cloud`` -> ``match_clouds`` -> ``bench_matching`` on the
+   card (``cloud_tools``: card == CPU, K6's matrix held against
+   ``hamming_packed``).
 
 Every phase prints one line of JSON. Any failure raises, so the exit code
 is non-zero and the final line is not printed. The last line is
@@ -1954,16 +1972,18 @@ def closure_keyframes(seed: int):
     return out, T_true
 
 
-def fill_closure_database(keyframes, device, chunk: int = 8):
+def fill_closure_database(keyframes, device, chunk: int = 8, **create_kw):
     """The keyframes through ``KeyframeDatabase.add_many``, ``chunk`` at a
     time, each chunk with its ``[B, L, 256]`` probability plane on the
-    device, as ``SLAMSystem`` adds a chunk's keyframes."""
+    device, as ``SLAMSystem`` adds a chunk's keyframes (``create_kw`` go to
+    ``KeyframeDatabase.create``)."""
     import numpy as np
     import torch
 
     from svi_mapper_tpu_torch.mapping.closure import KeyframeDatabase
 
-    db = KeyframeDatabase.create(512, CLOSURE_POOL, store_prob=True, device=device)
+    db = KeyframeDatabase.create(512, CLOSURE_POOL, store_prob=True, device=device,
+                                 **create_kw)
     for s in range(0, len(keyframes), chunk):
         part = keyframes[s:s + chunk]
         plane = np.zeros((len(part), CLOSURE_TABLE, 256), np.uint8)
@@ -2236,6 +2256,81 @@ def closure_errors(system, poses) -> list[float]:
     return errs
 
 
+def loop_params():
+    """The bench loop's tracking parameters (``bench.py:bench_full_slam``)."""
+    from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
+
+    return dataclasses.replace(
+        DEFAULT_PARAMS, max_landmarks=N_LANDMARKS, max_detections=N_LANDMARKS,
+        keyframe_translation_m2=4.0, keyframe_rotation_rad2=0.02,
+        max_motion_scaling_for_optimization=2.5)
+
+
+def render_loop(device):
+    """The bench loop's sequence and its frames rendered on the card:
+    ``(seq, imgs_l, imgs_r, seconds)``."""
+    import torch
+
+    from svi_mapper_tpu_torch.io import synthetic
+
+    seq = synthetic.SyntheticSequence(
+        n_frames=LOOP_FRAMES, width=W_RAW, height=H, trajectory="loop",
+        loop_radius=LOOP_RADIUS, device=device)
+    t0 = time.perf_counter()
+    imgs_l = torch.empty((LOOP_FRAMES, H, W_RAW), dtype=torch.float32, device=device)
+    imgs_r = torch.empty_like(imgs_l)
+    for i in range(LOOP_FRAMES):
+        imgs_l[i], imgs_r[i], _ = seq.frame(i)
+    torch.cuda.synchronize()
+    return seq, imgs_l, imgs_r, time.perf_counter() - t0
+
+
+class UtilSampler:
+    """While in use, samples the card's ``utilization.gpu`` (the share of
+    each sample period in which a kernel ran, as ``nvidia-smi`` reports it)
+    every 100 ms in a child ``nvidia-smi`` process, stopped on exit.
+    ``idle_share()`` is one less the mean sample (None if none came)."""
+
+    def __enter__(self):
+        import threading
+
+        self.samples: list[float] = []
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits", "-i", "0", "-lms", "100"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self.proc = None
+            return self
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        return self
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                self.samples.append(float(line.strip()))
+            except ValueError:
+                pass
+
+    def __exit__(self, *exc):
+        if self.proc is None:
+            return
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=5)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.reader.join(timeout=5)
+
+    def idle_share(self):
+        if not self.samples:
+            return None
+        return 1.0 - sum(self.samples) / len(self.samples) / 100.0
+
+
 def run_slam_loop(device, schur_kernels: bool = True,
                   keep: dict | None = None) -> tuple[dict, dict]:
     """The whole system on the loop, once. The report's ``ba_windows`` names
@@ -2253,26 +2348,12 @@ def run_slam_loop(device, schur_kernels: bool = True,
     import numpy as np
     import torch
 
-    from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
     from svi_mapper_tpu_torch.eval import trajectory as ev
-    from svi_mapper_tpu_torch.io import synthetic
     from svi_mapper_tpu_torch.models.slam import SLAMSystem
     from svi_mapper_tpu_torch.solvers import ba
 
-    params = dataclasses.replace(
-        DEFAULT_PARAMS, max_landmarks=N_LANDMARKS, max_detections=N_LANDMARKS,
-        keyframe_translation_m2=4.0, keyframe_rotation_rad2=0.02,
-        max_motion_scaling_for_optimization=2.5)
-    seq = synthetic.SyntheticSequence(
-        n_frames=LOOP_FRAMES, width=W_RAW, height=H, trajectory="loop",
-        loop_radius=LOOP_RADIUS, device=device)
-    t0 = time.perf_counter()
-    imgs_l = torch.empty((LOOP_FRAMES, H, W_RAW), dtype=torch.float32, device=device)
-    imgs_r = torch.empty_like(imgs_l)
-    for i in range(LOOP_FRAMES):
-        imgs_l[i], imgs_r[i], _ = seq.frame(i)
-    torch.cuda.synchronize()
-    render_s = time.perf_counter() - t0
+    params = loop_params()
+    seq, imgs_l, imgs_r, render_s = render_loop(device)
 
     windows = []
     slam = SLAMSystem(seq.cam, params, device=device)
@@ -2286,7 +2367,8 @@ def run_slam_loop(device, schur_kernels: bool = True,
     route = (contextlib.nullcontext() if schur_kernels else
              mock.patch.object(ba, "schur_kernel_auto", lambda *a, **k: False))
     with route, TrackInputs(sample=LOOP_FRAMES // 2) as k1_inputs, \
-            stereo_match_calls() as k2_calls, pool_count_calls() as scorings:
+            stereo_match_calls() as k2_calls, pool_count_calls() as scorings, \
+            UtilSampler() as util:
         syncs = count_host_syncs(lambda: outs.extend(slam.process_many(
             imgs_l[:n_sync], imgs_r[:n_sync], chunk=LOOP_CHUNK)))
         checkpoint_s = loop_with_checkpoint(
@@ -2330,6 +2412,9 @@ def run_slam_loop(device, schur_kernels: bool = True,
     tm = slam.timings
     report = {
         "phase": "slam_loop", "frames": LOOP_FRAMES, "image": [H, W_RAW],
+        # nvidia-smi's utilization.gpu, sampled every 100 ms over the run
+        # (checkpoint saving included)
+        "card_idle_share": util.idle_share(), "util_samples": len(util.samples),
         "landmarks": N_LANDMARKS, "chunk": LOOP_CHUNK, "radius_m": LOOP_RADIUS,
         "render_seconds": render_s, "seconds": seconds,
         "frames_per_s": LOOP_FRAMES / seconds,
@@ -3191,6 +3276,478 @@ def run_stage_budget(device, smi: str) -> tuple[dict, dict]:
     return report, counts
 
 
+# ---------------------------------------------------------------------------
+# the worker threads, the native runtime and its tools
+# ---------------------------------------------------------------------------
+
+def worker_launches(thread_prefix: str) -> dict:
+    """Launches per kernel entry by the threads whose names start with
+    ``thread_prefix`` since the counts were last set to 0."""
+    from svi_mapper_tpu_torch.ops import paths
+
+    out = dict.fromkeys(launch_counts(), 0)
+    for name, tally in paths.launch_counts_by_thread().items():
+        if name.startswith(thread_prefix):
+            for k, v in tally.items():
+                out[k] += v
+    return out
+
+
+def same_revisits(a: list, b: list, radius: int) -> bool:
+    """Every accepted closure of one list has one of the other within
+    ``radius`` keyframes at both ends (the dedup rule's notion of one
+    revisit event), both ways."""
+    near = lambda e, others: any(abs(e[0] - o[0]) <= radius and abs(e[1] - o[1]) <= radius  # noqa: E731
+                                 for o in others)
+    return all(near(e, b) for e in a) and all(near(e, a) for e in b)
+
+
+def run_worker_loop(device, loop: dict, option: dict, phase: str,
+                    thread_prefix: str) -> tuple[dict, dict, object]:
+    """The bench loop through ``SLAMSystem(**option)``: ``process_many(chunk=32)``
+    -> ``flush_closures(block=True)`` -> ``finalize_backend()``, timed as
+    ``slam_loop`` times its run, with the card's idle share. Returns the
+    report's common part, the launch counts, the system (not closed) and
+    the common checks as ``(passed, message)`` pairs, for the caller to
+    require after it printed its report."""
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch.eval import trajectory as ev
+    from svi_mapper_tpu_torch.models.slam import SLAMSystem
+
+    params = loop_params()
+    seq, imgs_l, imgs_r, render_s = render_loop(device)
+    windows = []
+    slam = SLAMSystem(seq.cam, params, device=device, **option)
+    record_ba_windows(slam, windows)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with UtilSampler() as util:
+        outs = slam.process_many(imgs_l, imgs_r, chunk=LOOP_CHUNK)
+        slam.flush_closures(block=True)
+        slam.finalize_backend()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    on_worker = worker_launches(thread_prefix)
+    opt = slam.optimized_trajectory()
+    raw = slam.trajectory_array
+    st = slam.stats
+    n_kf = len(slam.slam_keyframes)
+    accepted = [[c.ref_kf, c.query_kf] for c in slam.accepted_closures]
+    crossings, at_wall = wall_crossings(seq.poses_wc, 1)
+    rejected = [i for i, o in enumerate(outs[1:], 1) if not bool(o.posit_ok)]
+    report = {
+        "phase": phase, "option": {k: v for k, v in option.items()},
+        "frames": LOOP_FRAMES, "image": [H, W_RAW], "chunk": LOOP_CHUNK,
+        "render_seconds": render_s, "seconds": seconds,
+        "frames_per_s": LOOP_FRAMES / seconds,
+        "slam_loop_frames_per_s": loop["frames_per_s"],
+        "card_idle_share": util.idle_share(), "util_samples": len(util.samples),
+        "slam_loop_card_idle_share": loop.get("card_idle_share"),
+        "keyframes": n_kf, "slam_loop_keyframes": loop["keyframes"],
+        "stats": {k: int(v) for k, v in st.items()},
+        "accepted_closures": accepted,
+        "slam_loop_accepted_closures": loop["accepted_closures"],
+        "closures_found": int(st["closures_found"]),
+        "slam_loop_closures_found": loop["stats"]["closures_found"],
+        "same_closures_as_slam_loop": (
+            int(st["closures_found"]) == loop["stats"]["closures_found"]
+            and accepted == loop["accepted_closures"]),
+        "same_revisits_as_slam_loop": same_revisits(
+            accepted, loop["accepted_closures"], params.closure_dedup_radius_kf),
+        "closure_transform_err_m": closure_errors(slam, seq.poses_wc),
+        "ate_recorded_m": ev.ate_rmse(raw, seq.poses_wc),
+        "ate_optimised_m": ev.ate_rmse(opt, seq.poses_wc),
+        "slam_loop_ate_optimised_m": loop["ate_optimised_m"],
+        "ba_windows": windows_by_shape(windows, counts),
+        "posit_rejected_at_frames": rejected, "wall_crossings_at_frames": crossings,
+        "timings_s": {k: float(v) for k, v in slam.timings.items()},
+        "launches": counts, "launches_on_worker": on_worker,
+    }
+    bad = [i for i in rejected if i not in at_wall]
+    checks = [(len(outs) == LOOP_FRAMES and not bad,
+               f"{phase}: pose solve rejected on frames {bad}"),
+              (all(np.isfinite(kf.T_wc).all() for kf in slam.slam_keyframes),
+               f"{phase}: NaN in a keyframe pose"),
+              (np.isfinite(opt).all(), f"{phase}: NaN in the optimised trajectory"),
+              (slam.db.n == n_kf and slam.db.desc.device == imgs_l.device,
+               f"{phase}: database")]
+    return report, counts, slam, checks
+
+
+def run_async_closure(device, loop: dict) -> tuple[dict, dict]:
+    """The bench loop with the closure search on its worker thread
+    (``async_closure=True``). Gates: the accepted closures are the revisit
+    events ``slam_loop`` accepted (within the dedup radius; whether found
+    and accepted closures are the same exactly is reported), each within
+    0.5 m of the truth; no search pending; optimised ATE < 0.5 m; K6's pool
+    count launched on the closure worker. The revisit events and not the
+    exact edges: on this chunked path the JAX package's own async run folds
+    a closure a keyframe later than its synchronous run, which changes the
+    keyframes and closures found after it but not the revisit events
+    accepted (``tests/test_torch_async_closure_chunked.py``, where the
+    port's chunked async run equals the JAX package's exactly)."""
+    report, counts, slam, checks = run_worker_loop(
+        device, loop, {"async_closure": True}, "async_closure", "loop-closure")
+    report["pending_after_flush"] = len(slam._pending_closures)
+    emit(report)
+    for passed, message in checks:
+        require(passed, message)
+    st = slam.stats
+    require(st["closures_accepted"] >= 1, f"async_closure: no closure accepted: {st}")
+    require(report["same_revisits_as_slam_loop"],
+            f"async_closure: closures {report['accepted_closures']} against "
+            f"slam_loop's {loop['accepted_closures']}")
+    require(max(report["closure_transform_err_m"]) < LOOP_CLOSURE_ERR_M,
+            f"async_closure: closures off by {report['closure_transform_err_m']} m")
+    require(not slam._pending_closures, "async_closure: a search is still pending")
+    require(report["ate_optimised_m"] < LOOP_ATE_BOUND_M,
+            f"async_closure: ATE {report['ate_optimised_m']} m")
+    require(report["launches_on_worker"][CLOSURE_KERNEL] > 0,
+            f"async_closure: K6 not launched on the worker: {report['launches_on_worker']}")
+    require(all(counts[k] > 0 for k in FRONTEND_KERNELS + ("schur_assemble",)),
+            f"async_closure: kernel not launched: {counts}")
+    slam.close()
+    return report, counts
+
+
+def run_overlap_backend(device, loop: dict) -> tuple[dict, dict]:
+    """The bench loop with the whole keyframe tail on the back-end worker
+    (``overlap_backend="force"``). Gates: the worker ran; closures, pose
+    graph and BA each ran; every future drained and every fold applied;
+    optimised ATE < max(1.25 x slam_loop's, 0.25 m) and < 0.5 m; K4 launched
+    on the worker. Then ``overlap_backend=True`` on the one card must warn
+    and run synchronously."""
+    import warnings
+
+    import torch
+
+    from svi_mapper_tpu_torch.models.slam import SLAMSystem
+
+    report, counts, slam, checks = run_worker_loop(
+        device, loop, {"overlap_backend": "force"}, "overlap_backend", "backend")
+    report.update(worker_set=slam._bk_pool is not None,
+                  futures_left=len(slam._bk_futures),
+                  folds_left=slam._bk_folds.qsize(),
+                  folds_applied=slam._fold_version,
+                  ate_bound_m=min(max(1.25 * loop["ate_optimised_m"], 0.25),
+                                  LOOP_ATE_BOUND_M))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        one = SLAMSystem(slam.cam, loop_params(), device=device, overlap_backend=True)
+    report["true_on_one_card"] = {
+        "warned": any("single visible device" in str(w.message) for w in caught),
+        "worker": one._bk_pool is not None, "cards": torch.cuda.device_count()}
+    one.close()
+    emit(report)
+    for passed, message in checks:
+        require(passed, message)
+    st = slam.stats
+    require(report["worker_set"], "overlap_backend: no back-end worker")
+    require(st["closures_accepted"] >= 1 and st["pose_graph_runs"] >= 1
+            and st["ba_runs"] >= 1, f"overlap_backend: the loop was not closed: {st}")
+    require(report["futures_left"] == 0 and report["folds_left"] == 0,
+            "overlap_backend: work left on the queue")
+    require(report["ate_optimised_m"] < report["ate_bound_m"],
+            f"overlap_backend: ATE {report['ate_optimised_m']} m, bound "
+            f"{report['ate_bound_m']} m")
+    require(report["launches_on_worker"]["schur_assemble"] > 0,
+            f"overlap_backend: K4 not launched on the worker: {report['launches_on_worker']}")
+    require(report["launches_on_worker"][CLOSURE_KERNEL] > 0,
+            f"overlap_backend: K6 not launched on the worker: {report['launches_on_worker']}")
+    require(all(counts[k] > 0 for k in FRONTEND_KERNELS),
+            f"overlap_backend: kernel not launched: {counts}")
+    require(report["true_on_one_card"]["warned"] and not report["true_on_one_card"]["worker"],
+            f"overlap_backend=True on one card: {report['true_on_one_card']}")
+    slam.close()
+    require(slam._bk_pool is None, "overlap_backend: close() left the worker")
+    return report, counts
+
+
+DUMP_FRAMES = 32
+
+
+def run_native_runtime(device) -> tuple[dict, dict]:
+    """The port's C++ host runtime, built from ``native/src`` with g++:
+    (1) the closure database of ``closure_query`` with the native index and
+    no vocabulary, so that the tree shortlists every query, as
+    ``SLAMSystem`` queries (probabilistic matching) and with exact matching
+    (K6's matrix); votes and results card == CPU; no decoy accepted;
+    (2) the bench loop's first 32 frames through ``tools/make_dump``, read
+    back by ``DumpReader(prefetch=4)``, ``validate_dump`` == 32, and tracked
+    by ``StereoTracker`` to the same bits as the same 8-bit frames from
+    memory; (3) a ``.svic`` round trip, bit for bit, of the clouds
+    ``io.cloud.cloud_from_slam_state`` took of the dump replay's state after
+    each frame. Returns the report and the launch counts of the closure
+    queries (``queries``) and of the dump replay (``dump``), each set to 0
+    just before its run and read just after."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch import native
+    from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
+    from svi_mapper_tpu_torch.io import cloud as cloud_mod
+    from svi_mapper_tpu_torch.mapping import closure
+    from svi_mapper_tpu_torch.models.slam import closure_kwargs
+    from svi_mapper_tpu_torch.models.tracker import StereoTracker
+    from svi_mapper_tpu_torch.native import build
+    from svi_mapper_tpu_torch.ops import cuda_build
+    from svi_mapper_tpu_torch.ops.descriptors import words_to_numpy
+    from svi_mapper_tpu_torch.tools import make_dump
+
+    t0 = time.perf_counter()
+    require(native.available(), f"native library: {native.load_error()}")
+    build_s = time.perf_counter() - t0
+    lib_path = build.library_path()
+    require(native._lib._name == str(lib_path) and lib_path.parent == cuda_build.BUILD_DIR,
+            f"native library loaded from {native._lib._name}")
+
+    # (1) the tree shortlist on the closure database
+    keyframes, T_true = closure_keyframes(seed=13)
+    kw = closure_kwargs(DEFAULT_PARAMS)
+    kw_exact = dict(kw, probabilistic=False)
+    t0 = time.perf_counter()
+    db = fill_closure_database(keyframes, device, native_index=True, auto_vocab=False)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    require(db.n == CLOSURE_KEYFRAMES and db.bow is None and db.index is not None,
+            "native database: keyframes, vocabulary or index")
+    require(db.index.size == sum(len(kf["desc"]) for kf in keyframes),
+            f"native index holds {db.index.size} descriptors")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    found = closure.find_closures_batch(db, CLOSURE_QUERIES, **kw)
+    query_s = time.perf_counter() - t0
+    found_exact = closure.find_closures_batch(db, CLOSURE_QUERIES, **kw_exact)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    desc_q = words_to_numpy(db.desc[CLOSURE_QUERIES[0]: CLOSURE_QUERIES[-1] + 1])
+    valid_q = db.valid[CLOSURE_QUERIES[0]: CLOSURE_QUERIES[-1] + 1].cpu().numpy()
+    exclude = kw["exclude_recent"]
+    t0 = time.perf_counter()
+    votes = [db.index.query(d[v], cutoff=kw["hamming_cutoff"], max_keyframe=q - exclude)
+             for q, d, v in zip(CLOSURE_QUERIES, desc_q, valid_q)]
+    tree_s = (time.perf_counter() - t0) / len(CLOSURE_QUERIES)
+
+    t0 = time.perf_counter()
+    db_cpu = fill_closure_database(keyframes, "cpu", native_index=True, auto_vocab=False)
+    found_cpu = closure.find_closures_batch(db_cpu, CLOSURE_QUERIES, **kw)
+    found_exact_cpu = closure.find_closures_batch(db_cpu, CLOSURE_QUERIES, **kw_exact)
+    cpu_s = time.perf_counter() - t0
+    votes_cpu = [db_cpu.index.query(
+        words_to_numpy(db_cpu.desc[q])[db_cpu.valid[q].numpy()], cutoff=kw["hamming_cutoff"],
+        max_keyframe=q - exclude) for q in CLOSURE_QUERIES]
+    worst_T = 0.0
+    for a_all, b_all in ((found, found_cpu), (found_exact, found_exact_cpu)):
+        for q, a, b in zip(CLOSURE_QUERIES, a_all, b_all):
+            require([(c.ref_kf, c.matches, c.inliers) for c in a]
+                    == [(c.ref_kf, c.matches, c.inliers) for c in b],
+                    f"native route, query {q}: card and CPU disagree")
+            for x, y in zip(a, b):
+                worst_T = max(worst_T, float(np.abs(x.T_qr - y.T_qr).max()))
+    require(worst_T < 1e-3, f"native route T_qr card vs CPU: {worst_T}")
+    require(all(np.array_equal(a, b) for a, b in zip(votes, votes_cpu)),
+            "tree votes differ between the card's and the CPU's database")
+    t_err = {}
+    for q, cands in zip(CLOSURE_QUERIES, found):
+        refs = [c.ref_kf for c in cands]
+        require(q in CLOSURE_REVISITS or refs == [], f"native route: query {q} accepted {refs}")
+        if q in CLOSURE_REVISITS and refs == [CLOSURE_REVISITS[q]]:
+            t_err[str(q)] = float(np.abs(cands[0].T_qr - T_true[q]).max())
+    require(all(e < T_QR_TOL for e in t_err.values()), f"native route T_qr: {t_err}")
+
+    # (2) the loop's first frames through the dump
+    params = loop_params()
+    seq, imgs_l, imgs_r, _ = render_loop(device)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as d:
+        path = Path(d) / "loop.svid"
+        t0 = time.perf_counter()
+        n_valid_write = make_dump.dump_sequence(seq, path, DUMP_FRAMES)
+        dump_write_s = time.perf_counter() - t0
+        dump_bytes = path.stat().st_size
+        t0 = time.perf_counter()
+        with native.DumpReader(path, prefetch=4) as r:
+            dims = (r.n_frames, r.height, r.width)
+            dumped = list(r)
+        dump_read_s = time.perf_counter() - t0
+        n_valid = native.validate_dump(path)
+    memory = [(make_dump.to_u8(imgs_l[i]), make_dump.to_u8(imgs_r[i]))
+              for i in range(DUMP_FRAMES)]
+    same_images = all(np.array_equal(a[0], b[2]) and np.array_equal(a[1], b[3])
+                      for a, b in zip(memory, dumped))
+    runs, loop_clouds = {}, []
+    for name, frames in (("memory", memory), ("dump", [(f[2], f[3]) for f in dumped])):
+        tr = StereoTracker(seq.cam, params, device=device)
+        if name == "dump":
+            reset_launch_counts()
+        t0, capture_s = time.perf_counter(), 0.0
+        for i, (L, R) in enumerate(frames):
+            tr.process(torch.from_numpy(L).to(device, torch.float32),
+                       torch.from_numpy(R).to(device, torch.float32))
+            if name == "dump":
+                # the cloud the system writes, of this frame's state (its
+                # host reads left out of the replay's time)
+                t1 = time.perf_counter()
+                loop_clouds.append(cloud_mod.cloud_from_slam_state(tr.state, i, i))
+                capture_s += time.perf_counter() - t1
+        torch.cuda.synchronize()
+        runs[name] = (tr, time.perf_counter() - t0 - capture_s)
+    dump_counts = launch_counts()
+
+    # (3) .svic round trip of the dump replay's clouds
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as d:
+        d = Path(d)
+        t0 = time.perf_counter()
+        for c in loop_clouds:
+            cloud_mod.save_cloud(d / f"kf{c.keyframe_id:04d}.svic", c)
+        write_s = time.perf_counter() - t0
+        svic_bytes = sum(p.stat().st_size for p in d.glob("*.svic"))
+        t0 = time.perf_counter()
+        back = [cloud_mod.load_cloud(d / f"kf{c.keyframe_id:04d}.svic") for c in loop_clouds]
+        read_s = time.perf_counter() - t0
+        for c in loop_clouds[:4]:
+            cloud_mod.save_cloud(d / f"kf{c.keyframe_id:04d}.npz", c)
+        npz_bytes = sum(p.stat().st_size for p in d.glob("*.npz"))
+    fields = ("T_wc", "uids", "points_w", "points_cam", "uv_left", "uv_right", "descriptors")
+    cloud_diff = [(c.keyframe_id, f) for c, b in zip(loop_clouds, back) for f in fields
+                  if not np.array_equal(np.asarray(getattr(c, f)), np.asarray(getattr(b, f)))]
+    cloud_diff += [(c.keyframe_id, "ids") for c, b in zip(loop_clouds, back)
+                   if (c.keyframe_id, c.frame_idx) != (b.keyframe_id, b.frame_idx)]
+
+    tm, td = runs["memory"][0], runs["dump"][0]
+    same_track = (np.array_equal(tm.trajectory_array, td.trajectory_array)
+                  and [int(o.n_tracked) for o in tm.outputs] == [int(o.n_tracked) for o in td.outputs]
+                  and [bool(o.is_keyframe) for o in tm.outputs]
+                  == [bool(o.is_keyframe) for o in td.outputs])
+
+    report = {
+        "phase": "native_runtime", "library": str(lib_path.relative_to(cuda_build._PKG.parent)),
+        "build_seconds": build_s,
+        "closure_database": {
+            "keyframes": db.n, "pool": CLOSURE_POOL, "index_descriptors": db.index.size,
+            "fill_seconds": fill_s, "queries": len(CLOSURE_QUERIES),
+            "ms_per_batch": 1e3 * query_s, "tree_ms_per_query": 1e3 * tree_s,
+            "found": {str(q): [c.ref_kf for c in f] for q, f in zip(CLOSURE_QUERIES, found)},
+            "matches": {str(q): [c.matches for c in f] for q, f in zip(CLOSURE_QUERIES, found)},
+            "inliers": {str(q): [c.inliers for c in f] for q, f in zip(CLOSURE_QUERIES, found)},
+            "found_exact": {str(q): [c.ref_kf for c in f]
+                            for q, f in zip(CLOSURE_QUERIES, found_exact)},
+            "revisits_found": sum(1 for q, f in zip(CLOSURE_QUERIES, found)
+                                  if q in CLOSURE_REVISITS and [c.ref_kf for c in f]
+                                  == [CLOSURE_REVISITS[q]]),
+            "planted_revisits": len(CLOSURE_REVISITS), "decoys": len(CLOSURE_DECOYS),
+            "max_T_qr_err": t_err,
+            "top_votes": {str(q): int(v.max(initial=0)) for q, v in zip(CLOSURE_QUERIES, votes)},
+            "voted_for_revisit": {str(q): int(np.argmax(v)) for q, v in zip(CLOSURE_QUERIES, votes)
+                                  if q in CLOSURE_REVISITS},
+            "card_vs_cpu": {"discrete_outputs_equal": True, "votes_equal": True,
+                            "max_T_qr_diff": worst_T, "cpu_seconds": cpu_s},
+        },
+        "svic": {"clouds": len(loop_clouds), "source": "cloud_from_slam_state per dump frame",
+                 "points": [len(c.uids) for c in loop_clouds], "bytes": svic_bytes,
+                 "write_seconds": write_s, "read_seconds": read_s,
+                 "write_MB_per_s": svic_bytes / 1e6 / max(write_s, 1e-9),
+                 "read_MB_per_s": svic_bytes / 1e6 / max(read_s, 1e-9),
+                 "npz_bytes_first_4": npz_bytes, "fields_differing": cloud_diff},
+        "dump": {"frames": DUMP_FRAMES, "shape": list(dims), "bytes": dump_bytes,
+                 "validated": n_valid, "validated_at_write": n_valid_write,
+                 # make_dump renders each frame on the card, copies it to the
+                 # host as 8 bits and appends it: the seconds include all three
+                 "make_dump_seconds": dump_write_s,
+                 "read_seconds": dump_read_s,
+                 "read_MB_per_s": dump_bytes / 1e6 / dump_read_s,
+                 "read_prefetch": 4, "images_equal": same_images,
+                 "tracked_same_bits": same_track,
+                 "track_seconds_memory": runs["memory"][1],
+                 "track_seconds_dump": runs["dump"][1]},
+        "launches_closure_queries": counts, "launches_dump_replay": dump_counts,
+    }
+    emit(report)
+    require(not cloud_diff and len(back) == len(loop_clouds) == DUMP_FRAMES
+            # no landmark is optimal in the first few frames: their clouds
+            # are empty
+            and sum(1 for c in loop_clouds if len(c.uids)) >= DUMP_FRAMES // 2,
+            f".svic round trip: {cloud_diff}, points {[len(c.uids) for c in loop_clouds]}")
+    require(n_valid == n_valid_write == DUMP_FRAMES and dims == (DUMP_FRAMES, H, W_RAW)
+            and len(dumped) == DUMP_FRAMES, f"dump: {n_valid} frames, {dims}")
+    require(same_images and same_track, "dump: frames or tracking differ from memory")
+    require(counts["hamming_matrix"] > 0,
+            f"native route: K6's matrix not launched by exact matching: {counts}")
+    require(all(dump_counts[k] > 0 for k in FRONTEND_KERNELS),
+            f"dump replay: front-end kernel not launched: {dump_counts}")
+    return report, {"queries": counts, "dump": dump_counts}
+
+
+def run_cloud_tools(device) -> tuple[dict, dict]:
+    """``tools/create_cloud`` -> ``tools/match_clouds`` ->
+    ``tools/bench_matching`` on the card: four clouds of 256 landmarks (the
+    tools' defaults) matched all pairs, card == CPU; the benchmark of brute
+    force, K6's matrix, the native tree and the probabilistic matcher on
+    them and on 256 queries against 64 clouds of 256. K6's matrix is held
+    against ``hamming_packed`` on the benchmark's inputs."""
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch.io.cloud import load_cloud
+    from svi_mapper_tpu_torch.ops import cuda_build
+    from svi_mapper_tpu_torch.ops.descriptors import words_from_numpy, words_u32
+    from svi_mapper_tpu_torch.ops.hamming import hamming_distance_matrix, hamming_packed
+    from svi_mapper_tpu_torch.tools import bench_matching, create_cloud, match_clouds
+
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as d:
+        d = Path(d)
+        t0 = time.perf_counter()
+        small = [load_cloud(p) for p in create_cloud.create_clouds(
+            d / "small", clouds=4, points=256, svic=True, seed=0, log=lambda *a: None)]
+        large = [load_cloud(p) for p in create_cloud.create_clouds(
+            d / "large", clouds=65, points=256, svic=True, seed=1, log=lambda *a: None)]
+        create_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = match_clouds.match_all(small, device=device)
+    match_s = time.perf_counter() - t0
+    benches = {"4x256": bench_matching.bench(small, device=device, reps=20),
+               "65x256": bench_matching.bench(large, device=device, reps=20)}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    rows_cpu = match_clouds.match_all(small, device="cpu")
+    keys = ("query", "ref", "matches", "icp_ok", "inliers")
+    require([{k: r.get(k) for k in keys} for r in rows]
+            == [{k: r.get(k) for k in keys} for r in rows_cpu],
+            "match_clouds: card and CPU disagree")
+    worst_T = max(float(np.abs(a["T_qr"] - b["T_qr"]).max())
+                  for a, b in zip(rows, rows_cpu) if "T_qr" in a)
+    require(worst_T < 1e-4, f"match_clouds T_qr card vs CPU: {worst_T}")
+    errs = {}
+    for name, cl in (("4x256", small), ("65x256", large)):
+        q = words_u32(cl[0].descriptors)
+        train = np.concatenate([words_u32(c.descriptors) for c in cl[1:]])
+        got = hamming_distance_matrix(words_from_numpy(q, device),
+                                      words_from_numpy(train, device)).cpu()
+        want = hamming_packed(words_from_numpy(q, "cpu"), words_from_numpy(train, "cpu"))
+        errs[name] = int((got - want).abs().max())
+    for b in benches.values():
+        for k in ("matrix_s", "brute_force_s", "tree_s", "probabilistic_s"):
+            b[k.replace("_s", "_ms")] = 1e3 * b.pop(k)
+    report = {"phase": "cloud_tools", "create_seconds": create_s,
+              "match_clouds": [{k: r.get(k) for k in keys} for r in rows],
+              "match_seconds": match_s, "max_T_qr_diff_vs_cpu": worst_T,
+              "bench_matching": benches, "hamming_matrix_max_abs_err": errs,
+              "launches": counts}
+    emit(report)
+    require(all(e == 0 for e in errs.values()), f"K6's matrix against hamming_packed: {errs}")
+    require(sum(1 for r in rows if r.get("icp_ok")) >= 3,
+            f"match_clouds: consecutive clouds not matched: {rows}")
+    require(counts["hamming_matrix"] > 0, f"cloud tools: K6's matrix not launched: {counts}")
+    require(all(b["brute_force_votes"][0] > 0 for b in benches.values()),
+            f"bench_matching: {benches}")
+    return report, counts
+
+
 def main() -> int:
     import torch
 
@@ -3303,13 +3860,21 @@ def main() -> int:
     stress, stress_counts = run_stress_loop(device)
     alias, alias_counts = run_stress_alias(device)
     stage, stage_counts = run_stage_budget(device, smi)
+    # 8. the worker threads, the native runtime and its tools (each with its
+    #    counts set to 0 just before it and read just after)
+    torch.cuda.empty_cache()
+    asyn, async_counts = run_async_closure(device, loop)          # emits its own line
+    overlap, overlap_counts = run_overlap_backend(device, loop)   # emits its own line
+    native_rt, native_counts = run_native_runtime(device)
+    tools, tools_counts = run_cloud_tools(device)
     # every BA window of the loops has a shape at which K4 / K5 were held
     # against their plain versions: the expected ones in the kernel phase
     # above, any other one now
     at_shape = {(k["name"], k["K"], k["L"]): k for k in backend
                 if "ms" in k and not k["padded"]}
     loop_windows = (loop["ba_windows"] + svi["ba_windows"] + resume["ba_windows"]
-                    + stress["ba_windows"] + alias["ba_windows"])
+                    + stress["ba_windows"] + alias["ba_windows"] + asyn["ba_windows"]
+                    + overlap["ba_windows"])
     late = sorted({(w["kernel"], w["K"], w["L"]) for w in loop_windows
                    if (w["kernel"], w["K"], w["L"]) not in at_shape})
     for shape in late:
@@ -3357,6 +3922,13 @@ def main() -> int:
             "launches_stress_loop": stress_counts[k["name"]],
             "launches_stress_alias": alias_counts[k["name"]],
             "launches_stage_budget": stage_counts[k["name"]],
+            "launches_async_closure": async_counts[k["name"]],
+            "launches_async_closure_on_worker": asyn["launches_on_worker"][k["name"]],
+            "launches_overlap_backend": overlap_counts[k["name"]],
+            "launches_overlap_backend_on_worker": overlap["launches_on_worker"][k["name"]],
+            "launches_native_queries": native_counts["queries"][k["name"]],
+            "launches_native_dump": native_counts["dump"][k["name"]],
+            "launches_cloud_tools": tools_counts[k["name"]],
             "on_path": k["name"] not in OFF_PATH_ENTRIES,
         }
         for extra in ("launch_only_ms", "rel_err_vs_plain", "K", "L", "flops",
@@ -3378,7 +3950,8 @@ def main() -> int:
         if k["name"] in BACKEND_KERNELS:
             for key, path in (("at_slam_loop", loop), ("at_svi_loop", svi),
                               ("at_checkpoint_resume", resume), ("at_stress_loop", stress),
-                              ("at_stress_alias", alias)):
+                              ("at_stress_alias", alias), ("at_async_closure", asyn),
+                              ("at_overlap_backend", overlap)):
                 row[key] = [
                     {"K": w["K"], "L": w["L"], "windows": w["windows"],
                      "launches": w["launches"],

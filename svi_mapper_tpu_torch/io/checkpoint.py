@@ -20,6 +20,14 @@ the closure database's in-run BoW vocabulary. A resumed run starts with
 none and trains it anew over all stored pools at its next keyframe, so its
 closure shortlists can differ from the uninterrupted run's (ROADMAP F12);
 the frame step does not read it.
+
+A system run with ``async_closure`` or ``overlap_backend`` is drained
+(``flush_closures(block=True)``) before it is saved, so no search or
+back-end step is in flight in the file. The file records whether the
+closure database had a native index and whether the system ran the closure
+worker, and a loaded system gets both back, the index rebuilt from the
+stored pools. The overlapped back-end is not recorded (as in the JAX
+package): a loaded system runs the back-end synchronously.
 """
 
 from __future__ import annotations
@@ -86,8 +94,11 @@ def save_checkpoint(path: str | Path, tracker) -> None:
 
     The checkpoint is self-contained: camera calibration and tracking
     parameters ride along, so resuming needs only the file. Reads the
-    tracker's device state to the host.
+    tracker's device state to the host, after waiting for the worker
+    threads' pending work.
     """
+    if hasattr(tracker, "flush_closures"):
+        tracker.flush_closures(block=True)   # async searches must land first
     arrays: dict[str, np.ndarray] = {}
     state = convert.state_to_numpy(tracker.state)
     for f in _STATE_FIELDS:
@@ -134,10 +145,8 @@ def save_checkpoint(path: str | Path, tracker) -> None:
             "db_n": tracker.db.n,
             "db_capacity": tracker.db.capacity,
             "db_pool_size": tracker.db.pool_size,
-            # the port's database has no native index and the system no
-            # closure worker (ROADMAP queue 1 item 7c)
-            "db_native_index": False,
-            "async_closure": False,
+            "db_native_index": tracker.db.index is not None,
+            "async_closure": tracker._closure_pool is not None,
             # incremental-BA / landmark-identity state
             "last_opt_kf": tracker._last_opt_kf,
             "uid_parent": {str(k): v for k, v in tracker._uid_parent.items()},
@@ -213,15 +222,6 @@ def save_checkpoint(path: str | Path, tracker) -> None:
     np.savez_compressed(path, **arrays)
 
 
-def _refuse_unported(meta: dict, path) -> None:
-    s = meta.get("slam", {})
-    for key in ("db_native_index", "async_closure"):
-        if s.get(key, False):
-            raise NotImplementedError(
-                f"checkpoint {path} was written with {key}=True, which the "
-                "port does not run (ROADMAP queue 1 item 7c)")
-
-
 def _table_dict(fresh: dict, arrays: dict) -> dict:
     """The table fields of the file over a freshly allocated table's: a
     field absent from an older checkpoint keeps its fresh value."""
@@ -244,8 +244,9 @@ def load_checkpoint(path: str | Path, device=None):
     means CUDA) and return it, positioned exactly where ``save_checkpoint``
     left it: the same frame state, keyframe records, closure edges and
     database pools, bit for bit. A newer version raises
-    :class:`InvalidFileError` (a ``ValueError``); a file whose system ran a
-    closure worker or a native index raises ``NotImplementedError``."""
+    :class:`InvalidFileError` (a ``ValueError``). A system saved with a
+    native index or the closure worker comes back with them (building the
+    native library raises ``RuntimeError`` if g++ cannot)."""
     from svi_mapper_tpu_torch.config import TrackingParams
     from svi_mapper_tpu_torch.geometry.camera import (
         StereoCamera,
@@ -261,7 +262,6 @@ def load_checkpoint(path: str | Path, device=None):
     if meta["version"] > CHECKPOINT_VERSION:
         raise InvalidFileError(
             f"checkpoint {path} has unsupported version {meta['version']}")
-    _refuse_unported(meta, path)
 
     params = TrackingParams(**meta["params"])
     eyes = {}
@@ -282,6 +282,8 @@ def load_checkpoint(path: str | Path, device=None):
             ba_window=s["ba_window"], ba_max_points=s["ba_max_points"],
             consensus_window=s["consensus_window"],
             max_keyframes=s["db_capacity"], pool_size=s["db_pool_size"],
+            native_index=s.get("db_native_index", False),
+            async_closure=s.get("async_closure", False),
             device=dev,
         )
         if meta["kind"] == "svi":
@@ -397,3 +399,8 @@ def _load_slam_records(tracker, s: dict, arrays: dict, dev, SLAMKeyframe,
     db.count_host = [int(c) for c in arrays["db__count"][: db.n]]
     db.T_wc_host = np.asarray(arrays["db__T_wc"], np.float32).copy()
     db.bow = None
+    if db.index is not None:
+        # rebuild the native shortlist index from the stored pools
+        desc, valid = arrays["db__desc"], arrays["db__valid"]
+        for k in range(db.n):
+            db.index.add(desc[k][valid[k]], k)

@@ -10,8 +10,11 @@ persisted so the loop-closure subsystem can be exercised offline (the
 Format: NumPy ``.npz``, the schema of ``CDescriptorVectorPoint3DWORLD``
 (TypesCloud.h:20-46), version 1 — the JAX package's format, so a file
 written by either package loads in the other. Descriptors cross the file as
-``uint32`` (the port holds them as int32 with the same bits). The native
-binary codec behind the ``.svic`` suffix is not ported.
+``uint32`` (the port holds them as int32 with the same bits). A path
+ending in ``.svic`` goes through the native binary codec
+(:func:`svi_mapper_tpu_torch.native.write_cloud_native` /
+:func:`~svi_mapper_tpu_torch.native.read_cloud_native`, the JAX package's
+byte layout), which builds the port's C++ library at first use.
 """
 
 from __future__ import annotations
@@ -42,17 +45,18 @@ class KeyframeCloud:
     descriptors: np.ndarray   # [n,8] uint32 packed BRIEF
 
 
-def _refuse_native(path) -> None:
-    if str(path).endswith(".svic"):
-        raise NotImplementedError(
-            f"{path}: the native .svic cloud codec is not ported "
-            "(ROADMAP queue 1 item 7c); use an .npz path")
+def _native_path(path) -> bool:
+    return str(path).endswith(".svic")
 
 
 def save_cloud(path: str | Path, cloud: KeyframeCloud) -> None:
-    """Write a cloud file (``.npz``; the ``.svic`` suffix of the native codec
-    raises ``NotImplementedError``)."""
-    _refuse_native(path)
+    """Write a cloud file: ``.svic`` through the native binary codec,
+    anything else as ``.npz``."""
+    if _native_path(path):
+        from svi_mapper_tpu_torch import native
+
+        native.write_cloud_native(path, cloud)
+        return
     np.savez_compressed(
         path,
         format_version=FORMAT_VERSION,
@@ -69,9 +73,13 @@ def save_cloud(path: str | Path, cloud: KeyframeCloud) -> None:
 
 
 def load_cloud(path: str | Path) -> KeyframeCloud:
-    """Read a cloud file; a newer format version raises
+    """Read a cloud file (``.svic``: the native codec, which raises
+    ``IOError`` on a bad file); a newer ``.npz`` format version raises
     :class:`InvalidFileError`."""
-    _refuse_native(path)
+    if _native_path(path):
+        from svi_mapper_tpu_torch import native
+
+        return native.read_cloud_native(path)
     with np.load(path) as z:
         version = int(z["format_version"])
         if version > FORMAT_VERSION:

@@ -11,10 +11,21 @@ Replacement for the reference's loop-closing stack:
   * windowed single-robot consensus ``LoopClosureChecker``
     (closure_checker.cpp:20-113) -> a [C, C] chi^2 matrix.
 
-The database is a host container of device tensors. It is written IN
-PLACE (``add``, ``add_many``, ``update_poses``), which is safe because this
-port runs the closure search synchronously, on the thread that writes; a
-search on a worker thread over a snapshot would need copies.
+The database is a host container of device tensors. ``add`` /
+``add_many`` write the rows of new keyframes in place; rows below ``n`` of
+the pools are never written again, and a capacity doubling allocates new
+tensors and leaves the old ones as they were. ``update_poses`` rebinds new
+pose tensors instead of writing the old ones. So a
+:meth:`KeyframeDatabase.snapshot` (a shallow copy) reads what it was taken
+with while the tracker keeps adding keyframes: the closure worker thread
+(``SLAMSystem(async_closure=True)``) searches such snapshots.
+
+With ``native_index=True`` the database also feeds the port's C++
+descriptor tree (:class:`svi_mapper_tpu_torch.native.DescriptorIndex`,
+internally locked), which shortlists candidates where no vocabulary is
+trained. A database with an index trains no in-run vocabulary (as in the
+JAX package), so unless a vocabulary is given, the tree shortlists every
+query.
 
 Where the JAX package maps a function over queries or candidates, the
 functions here take leading batch dimensions. The fused query reads one
@@ -76,6 +87,7 @@ class KeyframeDatabase:
     # (ref CPDescriptorBRIEF mean-bit vectors stored per keyframe,
     # CKeyFrame.h:86-94 / CPDescriptorBRIEF.h:10-33); None = not stored
     prob: torch.Tensor | None = None   # [K, P, 256] uint8
+    index: object | None = None  # optional native DescriptorIndex
     bow: BowDatabase | None = None
     auto_vocab: bool = True      # train the BoW vocabulary in-run
     vocab_train_at: int = 8      # keyframes accumulated before training
@@ -101,13 +113,20 @@ class KeyframeDatabase:
                auto_vocab: bool = True,
                store_prob: bool = True,
                device=None) -> "KeyframeDatabase":
-        """Default shortlisting = in-run BoW (the reference's DBoW2 role).
-        ``device=None`` means CUDA (raises without one)."""
-        if native_index:
-            raise NotImplementedError(
-                "native_index=True (the C++ descriptor search tree) is not "
-                "ported: ROADMAP queue 1 item 7c")
+        """Default shortlisting = in-run BoW (the reference's DBoW2 role);
+        the native tree index is opt-in, and a database with one trains no
+        vocabulary in-run. ``device=None`` means CUDA (raises without one).
+
+        With ``native_index=True`` the port's C++ library is built (g++) if
+        it is not yet; if it cannot be, this raises ``RuntimeError`` with
+        the reason (``native.load_error()``) rather than run without the
+        index."""
         dev = resolve_device(device)
+        index = None
+        if native_index:
+            from svi_mapper_tpu_torch import native
+
+            index = native.DescriptorIndex()
         bow = None
         if vocabulary is not None:
             bow = BowDatabase(vocabulary, capacity=capacity)
@@ -122,6 +141,7 @@ class KeyframeDatabase:
             T_wc=torch.eye(4, dtype=torch.float32, device=dev).repeat(capacity, 1, 1),
             prob=(torch.zeros((capacity, pool_size, 256), dtype=torch.uint8, device=dev)
                   if store_prob else None),
+            index=index,
             bow=bow,
             auto_vocab=auto_vocab,
             T_wc_host=np.tile(np.eye(4, dtype=np.float32), (capacity, 1, 1)),
@@ -242,10 +262,14 @@ class KeyframeDatabase:
         self.count_host.extend(int(x) for x in nv)
         if self.T_wc_host is not None:
             self.T_wc_host[sl] = T
+        if self.index is not None:
+            for b in range(B):
+                self.index.add(d[b, : nv[b]], k0 + b)
         self.n = k0 + B
         if self.bow is not None:
             self.bow.add_many(d_t, v_t)
-        elif self.auto_vocab and self.n >= self.vocab_train_at:
+        elif (self.auto_vocab and self.index is None
+              and self.n >= self.vocab_train_at):
             self._train_vocab()
         return list(range(k0, k0 + B))
 
@@ -260,16 +284,27 @@ class KeyframeDatabase:
         """Overwrite the first ``len(T_new)`` stored poses (device tensor +
         host mirror) — the pose-graph back-propagation into the closure DB
         (ref _backPropagateTrajectoryToFull, Cg2oOptimizer.cpp:1552-1603).
-        In place: no reader holds an older binding in this port."""
+
+        Rebinds new tensors instead of writing the old ones: a
+        :meth:`snapshot` held by a reader thread keeps the poses it was
+        taken with, so its radius gate and ICP initialisations stay
+        consistent with one another."""
         n = len(T_new)
-        host = self.poses_host()
+        host = self.poses_host().copy()
         host[:n] = np.asarray(T_new, np.float32)
-        self.T_wc[:n] = torch.from_numpy(host[:n]).to(self.device)
+        self.T_wc_host = host
+        T_wc = self.T_wc.clone()
+        T_wc[:n] = torch.from_numpy(host[:n]).to(self.device)
+        self.T_wc = T_wc
 
     def snapshot(self) -> "KeyframeDatabase":
-        raise NotImplementedError(
-            "KeyframeDatabase.snapshot (for the async closure worker) is not "
-            "ported: ROADMAP queue 1 item 7c")
+        """Shallow copy for a reader thread. It reads what it was taken with
+        while this database takes more keyframes: rows below ``n`` of the
+        pools, the BoW store and the host lists are never rewritten (growth
+        and :meth:`update_poses` rebind new tensors), the rows added later
+        lie past every query's temporal bound, and the shared native index
+        is internally locked and bounds its votes the same way."""
+        return dataclasses.replace(self)
 
 
 def _words_np(desc) -> np.ndarray:
@@ -729,8 +764,11 @@ def find_closures_batch(
     Batching rests on chunk-mates never being each other's closure
     references: the temporal exclusion (>= ``exclude_recent`` keyframes, ref
     CTrackerSV.h:84) must be at least the chunk's keyframe count. That is
-    checked here: a longer batch, like a vocabulary-less database, falls
-    back to sequential :func:`find_closures` calls in order.
+    checked here: a longer batch, like a single query or a database with no
+    trained vocabulary, falls back to sequential :func:`find_closures` calls
+    in order. A database with a native index and a trained (given)
+    vocabulary batches like any other: the BoW shortlist takes precedence
+    over the tree, in :func:`find_closures` too.
     """
     use_prob = probabilistic and db.prob is not None
     if (db.bow is None or db.bow.n == 0 or len(query_kfs) <= 1
@@ -818,13 +856,27 @@ def find_closures(
             direct_index_levels=direct_index_levels))
         match_floor = floor if use_prob else min_matches
         return _decode_fused(query_kf, match_floor, max_candidates, fused)
-    # vocabulary-less database (the first keyframes, before the in-run
-    # vocabulary has trained): exact pool scores against every stored pool.
-    # Slots past ``n`` hold no valid descriptor and score 0.
     scores = np.zeros(db.capacity, np.int32)
-    scores[: db.n] = score_pools(
-        db.desc[query_kf], db.valid[query_kf], db.desc[: db.n],
-        db.valid[: db.n], cutoff=hamming_cutoff).cpu().numpy()
+    if db.index is not None:
+        # host-side tree shortlist (the native CBITree/DBoW2 analog): per
+        # query descriptor, a vote for the keyframe of its best match in
+        # the leaf it descends to. Votes are bounded to pre-exclusion
+        # keyframes so that the query keyframe's own (already inserted)
+        # descriptors cannot shadow the revisited one (the reference queries
+        # before adding, CTrackerGT:411). The index may hold keyframes added
+        # after this database was snapshotted; they lie past the bound.
+        desc_q, valid_q = fetch_numpy((db.desc[query_kf], db.valid[query_kf]))
+        votes = db.index.query(desc_q[valid_q], cutoff=hamming_cutoff,
+                               max_keyframe=max(0, query_kf - exclude_recent))
+        n_v = min(len(votes), len(scores))
+        scores[:n_v] = votes[:n_v]
+    else:
+        # vocabulary-less database (the first keyframes, before the in-run
+        # vocabulary has trained): exact pool scores against every stored
+        # pool. Slots past ``n`` hold no valid descriptor and score 0.
+        scores[: db.n] = score_pools(
+            db.desc[query_kf], db.valid[query_kf], db.desc[: db.n],
+            db.valid[: db.n], cutoff=hamming_cutoff).cpu().numpy()
     # only earlier, temporally non-adjacent keyframes are eligible
     lo = max(0, query_kf - exclude_recent)
     scores[lo:] = 0

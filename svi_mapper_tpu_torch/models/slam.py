@@ -14,11 +14,31 @@ pool scoring, ICP, pose graph, BA); the host keeps the keyframe list,
 decides when to run the back-end, runs the [C <= 16] closure consensus in
 numpy, and shuffles small pose/uid arrays.
 
-Synchronous only: the keyframe tail runs inline at the keyframe (per-frame
-mode) or at the chunk boundary (``process_many``). The closure worker thread
-(``async_closure``) and the overlapped back-end (``overlap_backend``) of the
-JAX package are not ported and raise ``NotImplementedError``. Because
-nothing runs beside the tracker, the closure database is written in place.
+By default the keyframe tail runs inline at the keyframe (per-frame mode)
+or at the chunk boundary (``process_many``). Two options move part of it
+onto one worker thread, as in the JAX package:
+
+* ``async_closure=True``: the closure search (pool scoring, matching, ICP)
+  runs on a worker over a snapshot of the closure database
+  (``KeyframeDatabase.snapshot``); its results are folded in at later
+  keyframes and by ``flush_closures``;
+* ``overlap_backend``: the whole keyframe tail (DB add, closure search,
+  consensus, pose graph, BA) runs on a worker over queued keyframe
+  snapshots. The worker never touches the live tracking state: it emits
+  ordered "fold" operations (rigid gauge corrections, landmark positions by
+  uid, identity-merge tables) that the tracker thread applies at chunk
+  boundaries (``_apply_folds``), and its BA windows start from the landmark
+  positions the keyframe snapshots carried. With one visible device of the
+  system's type, ``True`` warns and runs synchronously; ``"force"`` keeps
+  the worker.
+
+Both threads submit to the device's default stream, so their device work
+runs in the order it was submitted; what the threads race for is the host.
+A worker's exception re-raises in the tracker thread, from
+``flush_closures`` / ``flush_backend`` / ``finalize_backend`` or the next
+fold. When a worker result lands depends on the threads' timing, so the
+two options are held to the synchronous run's closures and accuracy, not to
+its bits.
 
 The ``timings`` of the keyframe tail are host clocks. ``kf_closure``,
 ``kf_ba`` and ``kf_pose_graph`` end in a read of their results and so
@@ -29,7 +49,10 @@ enqueue the writes.
 from __future__ import annotations
 
 import dataclasses
+import queue
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -100,6 +123,11 @@ def closure_kwargs(p: TrackingParams) -> dict:
     )
 
 
+def _devices_of_type(device: torch.device) -> int:
+    """Visible devices of ``device``'s type: CUDA cards, or 1 for the CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
 def _poses_rmul(T, Tp, Tk, A):
     return T @ A, Tp @ A, Tk @ A
 
@@ -152,14 +180,13 @@ class SLAMSystem(StereoTracker):
         graph_snapshot_dir: str | None = None,
         device: torch.device | str | None = None,
     ):
-        if async_closure:
-            raise NotImplementedError(
-                "async_closure=True (the closure worker thread) is not "
-                "ported: ROADMAP queue 1 item 7c")
-        if overlap_backend:
-            raise NotImplementedError(
-                "overlap_backend (the back-end worker thread, its event "
-                "queue and folds) is not ported: ROADMAP queue 1 item 7c")
+        self._closure_pool = None
+        self._bk_pool = None
+        if async_closure and overlap_backend:
+            raise ValueError(
+                "async_closure is subsumed by overlap_backend (the whole "
+                "keyframe tail, closure search included, runs on the "
+                "back-end worker) — enable only one")
         super().__init__(cam, params, use_gt_pose=use_gt_pose, device=device)
         self.enable_loop_closure = enable_loop_closure
         self.enable_local_ba = enable_local_ba
@@ -212,6 +239,37 @@ class SLAMSystem(StereoTracker):
         # (p_new = _corr_P p_raw; T_new = T_raw @ _corr_M)
         self._corr_P = np.eye(4, dtype=np.float64)
         self._corr_M = np.eye(4, dtype=np.float64)
+        # async loop closure: the search runs on a worker thread over a
+        # database snapshot, and results fold in at the next keyframe
+        # (the reference searches inline, CTrackerGT.cpp:257)
+        self._pending_closures: list = []
+        if async_closure:
+            self._closure_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="loop-closure")
+        # overlapped back-end: the whole keyframe tail on ONE worker thread
+        # over queued keyframe snapshots. Every queued event carries the
+        # number of corrections the tracker had folded when its snapshot
+        # was taken; the worker brings late events into its own gauge with
+        # the cumulative correction products.
+        if overlap_backend and overlap_backend != "force" \
+                and _devices_of_type(self.device) == 1:
+            # one device: both threads' device work serialises on it, so
+            # the worker adds queue and gauge work and nothing overlaps
+            warnings.warn(
+                "overlap_backend requested with a single visible device — "
+                "falling back to the synchronous back-end (pass "
+                "overlap_backend='force' to keep the worker thread)",
+                stacklevel=2)
+            overlap_backend = False
+        if overlap_backend:
+            self._bk_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="backend")
+            self._bk_folds: queue.Queue = queue.Queue()
+            self._bk_futures: list = []
+            self._fold_version = 0               # corrections folded (main)
+            self._bk_Pc = [np.eye(4)]            # cumulative map corrections
+            self._bk_Mc = [np.eye(4)]            # cumulative pose corrections
+            self._last_kf_frame_idx = 0          # trajectory-segment anchor
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
@@ -249,6 +307,9 @@ class SLAMSystem(StereoTracker):
             stacked = stacked.to_host()   # one copy for the chunk's outputs
             self.timings["frame_total"] += time.perf_counter() - t0
             outs.extend(self._finish_chunk(stacked, snaps, e - s))
+            # fold completed back-end results into the live state at the
+            # chunk boundary (no-op without the overlapped back-end)
+            self._apply_folds()
             self._maybe_world_shift()
         return outs
 
@@ -280,13 +341,35 @@ class SLAMSystem(StereoTracker):
             sn = dict(zip(_SNAPSHOT_HOST_FIELDS, fetch_numpy(
                 [getattr(snaps, f)[sel] for f in _SNAPSHOT_HOST_FIELDS])))
             bitp_dev = snaps.bit_prob[sel]
+            if self._bk_pool is not None:
+                # overlapped back-end: queue raw snapshots (tagged with the
+                # current fold version) for the worker, which brings them
+                # into its own gauge
+                for j, i in enumerate(kf_rows):
+                    i = int(i)
+                    self._note_keyframe_pose(T_all[i])
+                    self._queue_keyframe_event(dict(
+                        frame_idx=base + i,
+                        T_wc=T_all[i].astype(np.float32),
+                        uid=sn["uid"][j], active=sn["active"][j],
+                        optimal=sn["optimal"][j], tracked=sn["tracked"][j],
+                        uv_left=sn["uv_left"][j],
+                        disparity=sn["disparity"][j],
+                        pos_w=sn["pos_w"][j], desc=sn["desc"][j],
+                        instability=int(stacked.instability[i]),
+                        bit_prob=bitp_dev[j],
+                        motion_scaling=self._kf_motion_scaling(base + i),
+                    ))
+                return outs
             self._corr_P = np.eye(4, dtype=np.float64)
             self._corr_M = np.eye(4, dtype=np.float64)
             deferred: list = []
             for j, i in enumerate(kf_rows):
                 i = int(i)
-                # corrections accumulated since the chunk ended (none: the
-                # back-end runs only after all the chunk's records exist)
+                # corrections accumulated from earlier keyframes of this
+                # chunk (none on the deferred path, where the back-end runs
+                # only after all the chunk's records exist; the async-closure
+                # path handles each keyframe inline)
                 T_kf = T_all[i].astype(np.float64) @ self._corr_M
                 P = self._corr_P
                 pos_w = sn["pos_w"][j] @ P[:3, :3].T + P[:3, 3]
@@ -299,13 +382,19 @@ class SLAMSystem(StereoTracker):
                     uv_left=sn["uv_left"][j], disparity=sn["disparity"][j],
                     pos_w=pos_w.astype(np.float32), desc=sn["desc"][j],
                     instability=int(stacked.instability[i]),
-                    # the whole [B, L, 256] device plane stack (keyframe j
-                    # <-> stack row j): the batched DB add gathers the pool
-                    # rows from it
-                    bit_prob=bitp_dev,
+                    # deferred path: the whole [B, L, 256] device plane stack
+                    # (keyframe j <-> stack row j), from which the batched DB
+                    # add gathers the pool rows; the async-closure inline
+                    # path takes its row
+                    bit_prob=(bitp_dev if self._closure_pool is None
+                              else bitp_dev[j]),
                     motion_scaling=self._kf_motion_scaling(base + i),
                     _defer=deferred,
                 )
+                if not deferred:
+                    # handled inline: anchor the recorded trajectory at the
+                    # corrected pose
+                    self.trajectory[base + i] = self.slam_keyframes[-1].T_wc
             self._process_deferred_keyframes(deferred)
         return outs
 
@@ -387,7 +476,7 @@ class SLAMSystem(StereoTracker):
             (self.state.T_wc, t.uid, t.active, t.is_optimal, t.failed,
              t.uv_left_last, t.disparity_last, t.pos_w, t.desc_left_ref,
              self.state.instability))
-        self._handle_keyframe(
+        payload = dict(
             frame_idx=self.frame_count - 1,
             T_wc=T_wc,
             uid=uid,
@@ -404,11 +493,145 @@ class SLAMSystem(StereoTracker):
             bit_prob=lm_mod.bit_prob_u8(t),
             motion_scaling=self._kf_motion_scaling(self.frame_count - 1),
         )
+        if self._bk_pool is not None:
+            self._queue_keyframe_event(payload)
+            self._apply_folds()
+            return
+        self._handle_keyframe(**payload)
         # keep the recorded trajectory piecewise-consistent: after back-end
         # corrections the live pose changed; the keyframe's trajectory entry
         # must be the CORRECTED pose so each inter-keyframe segment is
         # internally consistent and anchors exactly at raw[kf.frame_idx]
         self.trajectory[-1] = self.state.T_wc.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # overlapped back-end: event queue (tracker thread) + fold application
+    # ------------------------------------------------------------------
+    def _queue_keyframe_event(self, payload: dict) -> None:
+        """Submit a raw keyframe snapshot to the back-end worker, tagged
+        with the tracker's current fold version so that the worker can
+        bring it into its own (possibly further corrected) gauge."""
+        payload["version"] = self._fold_version
+        self._last_kf_frame_idx = payload["frame_idx"]
+        self._bk_futures.append(
+            self._bk_pool.submit(self._bk_handle_keyframe, payload))
+
+    def _bk_handle_keyframe(self, payload: dict) -> None:
+        """Worker thread: transform the snapshot from the tracker's gauge
+        at queue time into the worker's, then run the whole keyframe tail
+        (DB add, closure search, pose graph, BA)."""
+        v = payload.pop("version")
+        n = len(self._bk_Pc) - 1
+        if v < n:
+            # corrections (v..n] were emitted after this snapshot was taken
+            # (prefix products cancel: Pc_n Pc_v^-1 = P_n ... P_{v+1})
+            Pd = self._bk_Pc[n] @ np.linalg.inv(self._bk_Pc[v])
+            Md = np.linalg.inv(self._bk_Mc[v]) @ self._bk_Mc[n]
+            payload["T_wc"] = (
+                payload["T_wc"].astype(np.float64) @ Md).astype(np.float32)
+            payload["pos_w"] = (
+                payload["pos_w"] @ Pd[:3, :3].T + Pd[:3, 3]
+            ).astype(np.float32)
+        self._handle_keyframe(**payload)
+
+    def _emit_corr(self, P: np.ndarray, M: np.ndarray) -> None:
+        """Worker thread: emit a rigid gauge correction for the live state
+        (map points p -> P p; poses T -> T M) and extend the cumulative
+        products used to transform late keyframe events."""
+        self._bk_Pc.append(np.asarray(P, np.float64) @ self._bk_Pc[-1])
+        self._bk_Mc.append(self._bk_Mc[-1] @ np.asarray(M, np.float64))
+        self._bk_folds.put(("corr", np.asarray(P, np.float64),
+                            np.asarray(M, np.float64)))
+
+    def _apply_folds(self) -> None:
+        """Tracker thread: re-raise a failed worker task, then apply every
+        completed fold operation to the live state, in the order the worker
+        emitted them."""
+        if self._bk_pool is None:
+            return
+        still = []
+        for f in self._bk_futures:
+            if f.done():
+                f.result()
+            else:
+                still.append(f)
+        self._bk_futures = still
+        while True:
+            try:
+                op = self._bk_folds.get_nowait()
+            except queue.Empty:
+                break
+            kind = op[0]
+            if kind == "corr":
+                self._fold_corr(op[1], op[2])
+            elif kind == "lmk":
+                self._fold_landmarks(op[1], op[2], op[3])
+            elif kind == "canon":
+                self._apply_canon_to_live(op[1])
+
+    def _fold_corr(self, P: np.ndarray, M: np.ndarray) -> None:
+        """Apply a rigid back-end correction to the live tracking state:
+        map p -> P p, pose chain T -> T M, stored observation poses
+        X -> X P^-1 (the overlapped analog of _apply_world_correction /
+        _attach_live_to_keyframe)."""
+        Pj = self._dev(P, torch.float32)
+        Mj = self._dev(M, torch.float32)
+        Pinv = self._dev(np.linalg.inv(P), torch.float32)
+        t = self.state.table
+        pos_new = t.pos_w @ Pj[:3, :3].T + Pj[:3, 3]
+        meas_T_new = torch.einsum("lmij,jk->lmik", t.meas_T_wc, Pinv)
+        self.state = self.state.replace(
+            T_wc=self.state.T_wc @ Mj,
+            T_wc_prev=self.state.T_wc_prev @ Mj,
+            T_last_keyframe=self.state.T_last_keyframe @ Mj,
+            table=t.replace(pos_w=pos_new, meas_T_wc=meas_T_new),
+        )
+        self._table_mirror = None                       # positions moved
+        # rewrite the current trajectory segment (anchor keyframe included)
+        # so raw relative poses within the segment stay pure VO and the
+        # post-fold chain continues from the corrected pose
+        for j in range(self._last_kf_frame_idx, len(self.trajectory)):
+            self.trajectory[j] = np.asarray(
+                self.trajectory[j], np.float64) @ M
+        self._fold_version += 1
+
+    def _fold_landmarks(self, uids: np.ndarray, X: np.ndarray,
+                        dead_uids: np.ndarray) -> None:
+        """Write BA-optimised landmark positions into the live table by uid
+        (slots may have been recycled since the worker's snapshot: only
+        rows whose uid still matches are touched) and deactivate excised
+        landmarks. Rows to skip are dropped on the host."""
+        t = self.state.table
+        live_uid = t.uid.cpu().numpy().astype(np.int64)
+        cap = len(live_uid)
+        order = np.argsort(live_uid, kind="stable")
+
+        def to_slots(us: np.ndarray) -> np.ndarray:
+            if len(us) == 0:
+                return np.zeros(0, np.int64)
+            pos = np.searchsorted(live_uid[order], us)
+            slot = order[np.clip(pos, 0, cap - 1)]
+            return np.where(live_uid[slot] == us, slot, cap)
+
+        slots_good = to_slots(np.asarray(uids, np.int64))
+        slots_dead = to_slots(np.asarray(dead_uids, np.int64))
+        keep = slots_good < cap
+        self.state = self.state.replace(table=_ba_writeback(
+            t, self._dev(slots_good[keep], torch.int64),
+            self._dev(np.asarray(X, np.float32)[keep], torch.float32),
+            self._dev(slots_dead[slots_dead < cap], torch.int64)))
+        self._table_mirror = None                       # positions changed
+
+    def flush_backend(self) -> None:
+        """Wait for the back-end worker to drain its queue, then fold all
+        results (no-op without the overlapped back-end). A worker's
+        exception re-raises here."""
+        if self._bk_pool is None:
+            return
+        for f in self._bk_futures:
+            f.result()
+        self._bk_futures = []
+        self._apply_folds()
 
     def _apply_canon_to_live(self, lut: dict) -> None:
         """Rewrite live-table uids through an identity-merge LUT and keep
@@ -476,7 +699,7 @@ class SLAMSystem(StereoTracker):
         p_cam = pos_w[pool_sel] @ R.T + tt
         sel_idx = np.nonzero(pool_sel)[0]
         tm = self.timings
-        if _defer is not None:
+        if _defer is not None and self._closure_pool is None:
             # chunk mode: DB add, closure search and back-end cadence run
             # batched over the whole chunk's keyframes after all records
             # exist (_process_deferred_keyframes). ``bit_prob`` here is the
@@ -578,12 +801,39 @@ class SLAMSystem(StereoTracker):
 
     # ------------------------------------------------------------------
     def _find_closures(self, db: closure_mod.KeyframeDatabase, kf_index: int):
-        """Pure search stage."""
+        """Pure search stage (runs on the worker thread in async mode)."""
         return closure_mod.find_closures(db, kf_index, **closure_kwargs(self.params))
 
     def _detect_closures(self, kf: SLAMKeyframe) -> None:
+        if self._closure_pool is not None:
+            # fold in whatever earlier searches have finished, then start
+            # this keyframe's search on the worker over a snapshot
+            self.flush_closures(block=False)
+            snap = self.db.snapshot()
+            self._pending_closures.append(
+                (kf.index, self._closure_pool.submit(
+                    self._find_closures, snap, kf.index)))
+            return
         self._apply_found_closures(self._find_closures(self.db, kf.index),
                                    kf.index)
+
+    def flush_closures(self, block: bool = True) -> None:
+        """Fold finished async closure searches into the graph; with
+        ``block=True`` wait for all pending ones first (call before reading
+        final results or checkpointing). With the overlapped back-end this
+        drains the whole back-end queue. A worker's exception re-raises
+        here."""
+        if self._bk_pool is not None and block:
+            self.flush_backend()
+        if self._closure_pool is None:
+            return
+        still = []
+        for (idx, fut) in self._pending_closures:
+            if fut.done() or block:
+                self._apply_found_closures(fut.result(), idx)
+            else:
+                still.append((idx, fut))
+        self._pending_closures = still
 
     def _closure_redundant(self, ref_kf: int, query_kf: int,
                            extra: list | None = None) -> bool:
@@ -726,7 +976,8 @@ class SLAMSystem(StereoTracker):
 
     def _merge_closure_landmarks(self, edge: ClosureEdge) -> int:
         """Union the matched uid pairs of an accepted closure and collapse
-        duplicate live-table rows onto the canonical landmark."""
+        duplicate live-table rows onto the canonical landmark (directly in
+        synchronous mode; as a fold operation in overlapped mode)."""
         n_new = 0
         for (uq, ur) in edge.uid_pairs:
             if int(uq) < 0 or int(ur) < 0 or int(uq) == int(ur):
@@ -739,7 +990,10 @@ class SLAMSystem(StereoTracker):
         # may still carry a stale pre-merge uid)
         lut = {u: self._uid_find(u) for u in list(self._uid_parent)}
         lut = {u: c for u, c in lut.items() if u != c}
-        self._apply_canon_to_live(lut)
+        if self._bk_pool is not None:
+            self._bk_folds.put(("canon", lut))
+        else:
+            self._apply_canon_to_live(lut)
         self.stats["landmarks_merged"] = (
             self.stats.get("landmarks_merged", 0) + n_new)
         return n_new
@@ -824,7 +1078,13 @@ class SLAMSystem(StereoTracker):
         for k, kf in enumerate(self.slam_keyframes):
             kf.T_wc = T_opt[k]
         self.db.update_poses(T_opt)
-        self._apply_world_correction(T0[-1].astype(np.float32), T_opt[-1])
+        if self._bk_pool is not None:
+            # overlapped mode: emit the rigid world correction for the
+            # tracker thread to fold (p -> G p, T -> T G^-1)
+            G = self._world_correction(T0[-1], T_opt[-1].astype(np.float64))
+            self._emit_corr(G, np.linalg.inv(G))
+        else:
+            self._apply_world_correction(T0[-1].astype(np.float32), T_opt[-1])
 
     # ------------------------------------------------------------------
     def _gravity_priors(self, N0: int, N: int):
@@ -933,6 +1193,25 @@ class SLAMSystem(StereoTracker):
         # density gate: an under-constrained window lets BA run wild
         if mask.sum() < 20 * K0:
             return None
+
+        if self._bk_pool is not None:
+            # overlapped mode (worker thread): the live table belongs to the
+            # tracker thread — initialise each landmark from the NEWEST
+            # keyframe snapshot that observed it (assignment order = kf
+            # order, so later keyframes win)
+            all_pos = np.concatenate([kf.obs_pos for kf in kfs])
+            if len(all_pos) != len(all_uids):
+                return None      # snapshot positions missing (keyframes
+                                 # restored from a file without them)
+            X0 = np.zeros((Lpad, 3), np.float32)
+            havep = np.zeros(Lpad, bool)
+            sel = keep & (inv >= 0) & (inv < L0)
+            X0[inv[sel]] = all_pos[sel]
+            havep[inv[sel]] = True
+            mask &= havep[None, :]
+            if mask.sum() < 24:
+                return None
+            return uids, obs, mask, X0, np.full(Lpad, -1, np.int32)
 
         # current landmark positions by uid lookup in the live table. The
         # (uid, pos_w) host mirror is cached between chunk boundaries and
@@ -1130,6 +1409,32 @@ class SLAMSystem(StereoTracker):
         for k, kf in enumerate(kfs):
             kf.T_wc = T_opt[k]
 
+        if self._bk_pool is not None:
+            # overlapped mode: the live table belongs to the tracker thread —
+            # emit the landmark updates (keyed by uid, not slot: slots may
+            # have been recycled) and the rigid pose correction as folds
+            L0 = len(uids)
+            used = mask[:, :L0].any(0)
+            good = used & ~bad[:L0]
+            dead = used & bad[:L0]
+            gu, gx = uids[good], X_opt[:L0][good]
+            # refresh the window's snapshot positions so the NEXT window's
+            # initialiser starts from the BA result
+            if len(gu):
+                for kf in kfs:
+                    if len(kf.obs_pos) != len(kf.obs_uids):
+                        continue
+                    cu = self._canon_uids(kf.obs_uids.astype(np.int64))
+                    p = np.searchsorted(gu, cu)
+                    pc = np.clip(p, 0, len(gu) - 1)
+                    ok = gu[pc] == cu
+                    kf.obs_pos[ok] = gx[pc[ok]]
+            self._bk_folds.put(("lmk", gu, gx, uids[dead]))
+            A = (np.linalg.inv(T0[-1].astype(np.float64))
+                 @ T_opt[-1].astype(np.float64))
+            self._emit_corr(np.eye(4), A)
+            return True
+
         # write back landmark positions (only BA'd, still-live landmarks);
         # excised landmarks deactivate instead. BA'd landmarks also get
         # their measurement rings cleared — the stored observation poses
@@ -1153,16 +1458,33 @@ class SLAMSystem(StereoTracker):
 
     # ------------------------------------------------------------------
     def close(self) -> None:
-        """Nothing to shut down: this port starts no worker thread. Kept so
-        that callers written for the JAX package run unchanged."""
+        """Drain and shut down the worker threads (idempotent). After
+        ``close()`` the system keeps working in synchronous mode."""
+        if self._closure_pool is not None:
+            self.flush_closures(block=True)
+            self._closure_pool.shutdown(wait=True)
+            self._closure_pool = None
+        if self._bk_pool is not None:
+            self.flush_backend()
+            self._bk_pool.shutdown(wait=True)
+            self._bk_pool = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:       # interpreter teardown, half-built object
+            pass
 
     def finalize_backend(self) -> None:
-        """Drain the closure waiting queue: queued closures whose
-        optimization trigger never fired before the stream ended still
-        reconcile (the reference leaves them unoptimized, which is wrong for
-        a finite replay)."""
+        """Drain every pending back-end stage: async closure searches, the
+        overlapped worker queue, and the closure waiting queue (queued
+        closures whose optimization trigger never fired before the stream
+        ended still reconcile — the reference leaves them unoptimized,
+        which is wrong for a finite replay)."""
+        self.flush_closures(block=True)   # no-op in synchronous mode
         if self._closure_kfs_in_queue > 0:
             self._run_queued_optimization()
+            self._apply_folds()           # overlapped mode: fold corrections
 
     def optimized_trajectory(self) -> np.ndarray:
         """Per-frame trajectory with keyframe corrections interpolated:
@@ -1193,7 +1515,12 @@ class SLAMSystem(StereoTracker):
         """Robocentric rebase extended to the back-end state: keyframe
         poses, the closure database, and the chunk gauge accumulators all
         move into the new internal frame (ref m_vecTranslationToG2o is
-        threaded through every g2o call, CTrackerGT.h:84)."""
+        threaded through every g2o call, CTrackerGT.h:84).
+
+        With the overlapped back-end the (rare) shift is a synchronisation
+        point: the worker drains first so that both threads cross the gauge
+        change together."""
+        self.flush_backend()
         self._table_mirror = None                       # positions rebased
         super()._world_shift(c)
         Tc = self._translate4(c)

@@ -19,6 +19,11 @@ the chunked :meth:`StereoInertialTracker.process_many_imu` run the same frame
 step (``models.frame.process_frame_svi``); with the back-end off they give
 the same bits. With the back-end on, the chunked path runs the keyframe tail
 at the chunk boundary, as ``SLAMSystem.process_many`` does.
+
+``SLAMSystem``'s options pass through ``**kwargs``: with ``async_closure``
+or ``overlap_backend`` the gravity observations are still recorded on the
+tracker thread, once per keyframe before its event is handed over, and the
+worker reads them for the pose graph's and BA's gravity unaries.
 """
 
 from __future__ import annotations
@@ -176,6 +181,7 @@ class StereoInertialTracker(SLAMSystem):
             stacked = stacked.to_host()   # one copy for the chunk's outputs
             self.timings["frame_total"] += time.perf_counter() - t0
             outs.extend(self._finish_chunk(stacked, snaps, e - s))
+            self._apply_folds()       # no-op without the overlapped back-end
             self._maybe_world_shift()
         return outs
 

@@ -60,7 +60,7 @@ from types import MappingProxyType
 import numpy as np
 import torch
 
-from svi_mapper_tpu_torch.ops import cuda_build
+from svi_mapper_tpu_torch.ops import cuda_build, paths
 
 KT = 32                      # keyframes per tile (K5), and K4's ceiling
 LANDMARK_TILE = 32           # landmarks per assembly block (one per lane)
@@ -423,7 +423,6 @@ def launch_schur_system(T, X, obs, ow, lam, cam_scalars, point_damping, *,
     inputs and count the launch under K5 (``tiled``) or K4. Returns
     ``(S, rhs, Hll_inv, b_l, W)``; ``cam_scalars`` is ``(fx, fy, cx, cy,
     bq, kernel_px2)``."""
-    global schur_assemble_launches, schur_assemble_tiled_launches
     K, L = ow.shape
     dev = T.device
     tiling = schur_tiling(K, L, _sm_count(dev.index))
@@ -445,9 +444,9 @@ def launch_schur_system(T, X, obs, ow, lam, cam_scalars, point_damping, *,
             damping, stream)
     cuda_build.check_launch(err, "svi_schur_system")
     if tiled:
-        schur_assemble_tiled_launches += 1
+        paths.count_launch(__name__, "schur_assemble_tiled")
     else:
-        schur_assemble_launches += 1
+        paths.count_launch(__name__, "schur_assemble")
     view = lambda name, *shape: buf.narrow(0, lay[name][0], lay[name][1]).view(shape)  # noqa: E731
     return (view("S", K, 6, K, 6), view("rhs", K, 6), view("Hll_inv", L, 3, 3),
             view("b_l", L, 3), W)

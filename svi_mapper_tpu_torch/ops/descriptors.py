@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from svi_mapper_tpu_torch.ops import cuda_build
+from svi_mapper_tpu_torch.ops import cuda_build, paths
 from svi_mapper_tpu_torch.ops.image import _pad, box_blur
 
 DESCRIPTOR_BITS = 256          # ref Types.h:6
@@ -290,7 +290,6 @@ def brief_dense_fused(img: torch.Tensor) -> torch.Tensor:
     A CUDA tensor goes through the hand-written kernel (or raises); only a
     CPU tensor takes the plain version.
     """
-    global brief_dense_fused_launches
     if img.dim() != 2 or img.dtype != torch.float32:
         raise ValueError("brief_dense_fused takes a [H, W] float32 image")
     if not img.is_cuda:
@@ -306,7 +305,7 @@ def brief_dense_fused(img: torch.Tensor) -> torch.Tensor:
             img.data_ptr(), out.data_ptr(), h, w,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, "svi_brief_dense_fused")
-    brief_dense_fused_launches += 1
+    paths.count_launch(__name__, "brief_dense_fused")
     return out
 
 

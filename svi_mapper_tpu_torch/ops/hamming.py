@@ -41,7 +41,7 @@ import math
 
 import torch
 
-from svi_mapper_tpu_torch.ops import cuda_build
+from svi_mapper_tpu_torch.ops import cuda_build, paths
 from svi_mapper_tpu_torch.ops.descriptors import (
     DESCRIPTOR_WORDS,
     hamming_words,
@@ -100,7 +100,6 @@ def hamming_distance_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def launch_hamming_matrix(lib, a, b, out=None) -> torch.Tensor:
     """Allocate the matrix (unless ``out`` is given) and launch the kernel
     on checked, contiguous CUDA inputs."""
-    global hamming_matrix_launches
     batched = a.dim() == 3
     B = a.shape[0] if batched else 1
     N, M = a.shape[-2], b.shape[-2]
@@ -119,7 +118,7 @@ def launch_hamming_matrix(lib, a, b, out=None) -> torch.Tensor:
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, M,
                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check_launch(err, "svi_hamming_matrix")
-        hamming_matrix_launches += 1
+        paths.count_launch(__name__, "hamming_matrix")
     return out
 
 
@@ -179,7 +178,6 @@ def pool_nn_counts(
 def launch_pool_nn_counts(lib, q, vq, r, vr, cutoff: int, out=None) -> torch.Tensor:
     """Allocate the ``[B, C]`` counts (unless ``out`` is given) and launch
     the kernel on checked, contiguous CUDA inputs."""
-    global pool_nn_counts_launches
     B, P = q.shape[:2]
     C, Pr = r.shape[1:3]
     if B > _GRID_MAX:
@@ -197,7 +195,7 @@ def launch_pool_nn_counts(lib, q, vq, r, vr, cutoff: int, out=None) -> torch.Ten
                 out.data_ptr(), B, P, C, Pr, int(cutoff),
                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check_launch(err, "svi_pool_nn_counts")
-        pool_nn_counts_launches += 1
+        paths.count_launch(__name__, "pool_nn_counts")
     return out
 
 

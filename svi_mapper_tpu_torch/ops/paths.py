@@ -27,11 +27,45 @@ Call sites:
     ``ops.hamming.match_nearest`` / ``match_mutual`` / ``count_matches``.
     The probabilistic branch of ``match_pools`` is two float32 matrix
     products and launches no kernel of the port.
+
+A wrapper counts a launch through :func:`count_launch`, which adds one
+under a lock: the closure worker and the back-end worker launch K4-K6 from
+their own threads while the tracker thread launches K1-K3, and a bare
+``+= 1`` on a module global can lose a count between two threads. The same
+call keeps a tally per thread (:func:`launch_counts_by_thread`), which
+shows which kernels a worker thread launched.
 """
 
 from __future__ import annotations
 
+import sys
+import threading
+
 import torch
+
+_count_lock = threading.Lock()
+_by_thread: dict[str, dict[str, int]] = {}
+
+
+def count_launch(module: str, entry: str) -> None:
+    """Add one to the launch counter ``<entry>_launches`` of the wrapper
+    module named ``module`` and to the calling thread's tally, under one
+    lock."""
+    thread = threading.current_thread().name
+    mod = sys.modules[module]
+    attr = f"{entry}_launches"
+    with _count_lock:
+        setattr(mod, attr, getattr(mod, attr) + 1)
+        tally = _by_thread.setdefault(thread, {})
+        tally[entry] = tally.get(entry, 0) + 1
+
+
+def launch_counts_by_thread() -> dict[str, dict[str, int]]:
+    """Launches per thread name and entry since the last
+    :func:`reset_launch_counts` (threads that launched nothing are
+    absent)."""
+    with _count_lock:
+        return {t: dict(c) for t, c in _by_thread.items()}
 
 
 def launch_counts() -> dict:
@@ -64,14 +98,16 @@ def reset_launch_counts() -> None:
         track_kernel,
     )
 
-    track_kernel.track_scores_launches = 0
-    stereo_kernel.stereo_profiles_launches = 0
-    stereo_kernel.stereo_match_launches = 0
-    descriptors.brief_dense_fused_launches = 0
-    ba_kernel.schur_assemble_launches = 0
-    ba_kernel.schur_assemble_tiled_launches = 0
-    hamming.hamming_matrix_launches = 0
-    hamming.pool_nn_counts_launches = 0
+    with _count_lock:
+        track_kernel.track_scores_launches = 0
+        stereo_kernel.stereo_profiles_launches = 0
+        stereo_kernel.stereo_match_launches = 0
+        descriptors.brief_dense_fused_launches = 0
+        ba_kernel.schur_assemble_launches = 0
+        ba_kernel.schur_assemble_tiled_launches = 0
+        hamming.hamming_matrix_launches = 0
+        hamming.pool_nn_counts_launches = 0
+        _by_thread.clear()
 
 
 def kernel_paths(ba_window_ks: tuple[int, ...] = (8, 32, 64),

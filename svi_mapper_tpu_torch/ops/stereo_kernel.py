@@ -42,7 +42,7 @@ import ctypes
 
 import torch
 
-from svi_mapper_tpu_torch.ops import cuda_build
+from svi_mapper_tpu_torch.ops import cuda_build, paths
 from svi_mapper_tpu_torch.ops.descriptors import (
     DESCRIPTOR_WORDS,
     hamming_words,
@@ -154,7 +154,6 @@ def stereo_profiles(
 def launch_stereo_profiles(lib, dense_right, uv, desc, De: int):
     """Allocate ``(profile, u_r, x0)`` and launch the profile kernel on
     checked, contiguous CUDA inputs."""
-    global stereo_profiles_launches
     K = desc.shape[0]
     h, w = dense_right.shape[:2]
     out = torch.empty((K * (De + 2),), dtype=torch.int32, device=dense_right.device)
@@ -166,7 +165,7 @@ def launch_stereo_profiles(lib, dense_right, uv, desc, De: int):
                 profile.data_ptr(), u_r.data_ptr(), x0.data_ptr(), K, De, h, w,
                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check_launch(err, "svi_stereo_profiles")
-        stereo_profiles_launches += 1
+        paths.count_launch(__name__, "stereo_profiles")
     return profile, u_r, x0
 
 
@@ -212,7 +211,6 @@ def launch_stereo_match(lib, dense_right, uv, desc, center, search_range, De: in
     """Allocate the ``[6, K]`` result and launch the match kernel on checked,
     contiguous CUDA inputs (``center`` / ``search_range`` may be None; the
     range applies only with a centre)."""
-    global stereo_match_launches
     K = desc.shape[0]
     h, w = dense_right.shape[:2]
     if _WARPS * De * 4 > _SHARED_MAX:
@@ -227,5 +225,5 @@ def launch_stereo_match(lib, dense_right, uv, desc, center, search_range, De: in
                 K, De, h, w, ctypes.c_float(min_disparity),
                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check_launch(err, "svi_stereo_match")
-        stereo_match_launches += 1
+        paths.count_launch(__name__, "stereo_match")
     return out

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from svi_mapper_tpu_torch.ops import cuda_build
+from svi_mapper_tpu_torch.ops import cuda_build, paths
 from svi_mapper_tpu_torch.ops.descriptors import (
     DESCRIPTOR_WORDS,
     hamming_words,
@@ -298,7 +298,6 @@ def launch_track_scores(lib, dense_left, uv_pred, band, desc_last, desc_ref,
                         cutoff_s1: int, cutoff_s2: int, cutoff_ref: int):
     """Allocate the ``[4, L]`` output and launch the kernel on checked CUDA
     inputs; returns ``(score, x, y, dist)``, rows of that output."""
-    global track_scores_launches
     h, w, _ = dense_left.shape
     L = uv_pred.shape[0]
     out = torch.empty((4, L), dtype=torch.int32, device=dense_left.device)
@@ -310,5 +309,5 @@ def launch_track_scores(lib, dense_left, uv_pred, band, desc_last, desc_ref,
                 L, h, w, cutoff_s1, cutoff_s2, cutoff_ref,
                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check_launch(err, "svi_track_scores")
-        track_scores_launches += 1
+        paths.count_launch(__name__, "track_scores")
     return tuple(out)

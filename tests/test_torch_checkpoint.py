@@ -22,6 +22,7 @@ import json
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from svi_mapper_tpu.config import DEFAULT_PARAMS as JPARAMS
 from svi_mapper_tpu.imu import interpolator as j_imu
@@ -388,13 +389,77 @@ def test_writers_same_keys_and_dtypes(tmp_path, jax_files, kind):
 
 @pytest.mark.parametrize("key", ["db_native_index", "async_closure"])
 def test_unported_options_raise(tmp_path, jax_files, key):
+    """A JAX checkpoint of a system run with the native index or the closure
+    worker loads with that option on (the index rebuilt from the stored
+    pools: one entry per valid pool slot), saves it again, and without a
+    device raises for want of CUDA."""
     arrays = _file(jax_files["slam"][0])
     meta = _meta(arrays)
     meta["slam"][key] = True
     path = tmp_path / "opt.npz"
     _rewrite(path, arrays, meta)
-    with pytest.raises(NotImplementedError, match="7c"):
-        ck.load_checkpoint(path, device=CPU)
+    t = ck.load_checkpoint(path, device=CPU)
+    try:
+        if key == "db_native_index":
+            n = meta["slam"]["db_n"]
+            assert t.db.index is not None
+            assert t.db.index.size == int(arrays["db__valid"][:n].sum())
+            assert t._closure_pool is None
+        else:
+            assert t._closure_pool is not None and t.db.index is None
+        ck.save_checkpoint(tmp_path / "again.npz", t)
+        assert _meta(_file(tmp_path / "again.npz"))["slam"][key] is True
+    finally:
+        t.close()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ck.load_checkpoint(path)
+
+
+@pytest.mark.parametrize("option", ["native_index", "async_closure"])
+def test_option_checkpoints_cross(tmp_path, world, option):
+    """A system run with the native index or the closure worker, saved by
+    one package and loaded by the other, both ways: the option comes back
+    (the index rebuilt from the stored pools, the same descriptors stored),
+    and the loaded system carries on as the saved one does. Keyframes are
+    made easier to spawn (at frames 4 and 7), so that one is in the file and
+    one comes after."""
+    kw = {option: True}
+    easy = dict(keyframe_translation_m2=1.0, keyframe_min_landmarks=8)
+    for writer in ("port", "jax"):
+        if writer == "port":
+            src = SLAMSystem(world["cam"], dataclasses.replace(PARAMS, **easy),
+                             enable_local_ba=False, device=CPU, **kw)
+        else:
+            src = JSLAM(world["jcam"], dataclasses.replace(JP, **easy),
+                        enable_local_ba=False, **kw)
+        _run(src, "slam", world, 0, N_RUN)
+        path = tmp_path / f"{writer}_{option}.npz"
+        (ck if writer == "port" else jck).save_checkpoint(path, src)
+        assert _meta(_file(path))["slam"][
+            "db_native_index" if option == "native_index" else option] is True
+        dst = (jck.load_checkpoint(path) if writer == "port"
+               else ck.load_checkpoint(path, device=CPU))
+        assert src.db.n == dst.db.n >= 1
+        if option == "native_index":
+            assert dst.db.index is not None and dst.db.index.size == src.db.index.size
+            assert dst.db.bow is None and src.db.bow is None
+        else:
+            assert dst._closure_pool is not None
+        _run(src, "slam", world, N_RUN, N_RUN + N_MORE)
+        _run(dst, "slam", world, N_RUN, N_RUN + N_MORE)
+        for s in (src, dst):
+            s.flush_closures(block=True)
+        port, jax_ = (src, dst) if writer == "port" else (dst, src)
+        _assert_ints_equal(convert.state_to_numpy(port.state), state_dict(jax_.state))
+        np.testing.assert_allclose(np.stack(port.trajectory), np.stack(jax_.trajectory),
+                                   rtol=0, atol=POSE_ATOL["slam"])
+        assert port.db.n == jax_.db.n == 2
+        assert port.stats["closures_found"] == jax_.stats["closures_found"]
+        if option == "native_index":
+            assert port.db.index.size == jax_.db.index.size
+        src.close()
+        dst.close()
 
 
 def test_reads_v1_edges_and_pre_ring_tables(tmp_path, jax_files):

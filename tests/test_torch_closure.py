@@ -379,11 +379,30 @@ def test_consensus(rng):
 
 
 def test_left_out_options_raise():
-    with pytest.raises(NotImplementedError, match="7c"):
-        tclosure.KeyframeDatabase.create(4, 8, native_index=True, device="cpu")
+    """The native index and the snapshot of the closure worker exist; a
+    native database trains no vocabulary in-run; a snapshot keeps the poses
+    and pool counts it was taken with while the database grows and its poses
+    are updated; only a database without a device raises."""
+    dbn = tclosure.KeyframeDatabase.create(4, 8, native_index=True, device="cpu")
+    assert dbn.index is not None and dbn.auto_vocab
+    rng = np.random.default_rng(4)
+    for k in range(10):                       # past vocab_train_at and a growth
+        dbn.add(rng.integers(0, 2**32, (6, 8), dtype=np.uint32),
+                rng.normal(size=(6, 3)).astype(np.float32),
+                np.eye(4, dtype=np.float32))
+    assert dbn.bow is None and dbn.index.size == 60 and dbn.capacity == 16
     db = tclosure.KeyframeDatabase.create(4, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="7c"):
-        db.snapshot()
+    db.add(rng.integers(0, 2**32, (5, 8), dtype=np.uint32),
+           rng.normal(size=(5, 3)).astype(np.float32), np.eye(4, dtype=np.float32))
+    snap = db.snapshot()
+    T = np.eye(4, dtype=np.float32)
+    T[0, 3] = 2.0
+    db.update_poses(T[None])
+    db.add(rng.integers(0, 2**32, (3, 8), dtype=np.uint32),
+           rng.normal(size=(3, 3)).astype(np.float32), T)
+    assert snap.n == 1 and snap.count_of(0) == 5 and db.n == 2 and db.count_of(1) == 3
+    assert float(snap.T_wc[0, 0, 3]) == 0.0 and snap.poses_host()[0, 0, 3] == 0.0
+    assert float(db.T_wc[0, 0, 3]) == 2.0 and db.poses_host()[0, 0, 3] == 2.0
     with pytest.raises(RuntimeError, match="CUDA"):
         if not torch.cuda.is_available():
             tclosure.KeyframeDatabase.create(4, 8)

@@ -13,6 +13,7 @@ from svi_mapper_tpu.config import DEFAULT_PARAMS as JPARAMS
 from svi_mapper_tpu.io import cloud as jcloud
 from svi_mapper_tpu.models import frame as jframe
 from svi_mapper_tpu_torch.io import cloud as cloud_mod
+from svi_mapper_tpu_torch.ops.descriptors import words_u32
 from svi_mapper_tpu_torch.utils.errors import InvalidFileError
 
 from torch_parity import torch_state
@@ -67,10 +68,18 @@ def test_future_version_and_native_suffix(tmp_path, rng):
     np.savez_compressed(path, **arrays)
     with pytest.raises(InvalidFileError, match="version"):
         cloud_mod.load_cloud(path)
-    for fn in (lambda p: cloud_mod.save_cloud(p, _cloud(cloud_mod, rng)),
-               cloud_mod.load_cloud):
-        with pytest.raises(NotImplementedError, match="7c"):
-            fn(tmp_path / "kf.svic")
+    # the .svic suffix goes through the native codec: a round trip, and a
+    # file that is no cloud raises
+    c = _cloud(cloud_mod, rng)
+    cloud_mod.save_cloud(tmp_path / "kf.svic", c)
+    back = cloud_mod.load_cloud(tmp_path / "kf.svic")
+    assert (back.keyframe_id, back.frame_idx) == (c.keyframe_id, c.frame_idx)
+    np.testing.assert_array_equal(back.uids, c.uids)
+    np.testing.assert_array_equal(back.points_w, c.points_w)
+    np.testing.assert_array_equal(back.descriptors, words_u32(c.descriptors))
+    (tmp_path / "junk.svic").write_bytes(b"not a cloud file")
+    with pytest.raises(IOError):
+        cloud_mod.load_cloud(tmp_path / "junk.svic")
 
 
 def test_cloud_from_slam_state(rng):

@@ -37,11 +37,17 @@ def test_module_layout_mirrors_the_jax_package():
         "imu.interpolator", "io.euroc", "io.kitti", "eval.trajectory", "models.svi",
         "tools.run_euroc", "geometry.triangulation", "io.cloud", "io.checkpoint",
         "io.stress", "eval.timing", "eval.stage_bench", "utils.faults", "utils.loggers",
+        "native.build", "tools.make_dump", "tools.validate_dataset",
+        "tools.republish_stream", "tools.create_cloud", "tools.match_clouds",
+        "tools.bench_matching",
     }
     have = {m.removeprefix("svi_mapper_tpu_torch.") for m in MODULES}
     assert expected <= have
     for name in expected - {"convert"}:
         assert (REPO / "svi_mapper_tpu" / (name.replace(".", "/") + ".py")).exists(), name
+    assert "native" in have                        # the package, as in the JAX one
+    native_src = sorted(p.name for p in (REPO / "svi_mapper_tpu_torch" / "native" / "src").iterdir())
+    assert native_src == sorted(p.name for p in (REPO / "svi_mapper_tpu" / "native" / "src").iterdir())
     sources = sorted(p.name for p in (REPO / "svi_mapper_tpu_torch" / "csrc").glob("*.cu"))
     assert sources == ["brief_dense.cu", "hamming_matrix.cu", "schur_assemble.cu",
                        "stereo_profiles.cu", "track_scores.cu"]
@@ -275,19 +281,29 @@ def test_closure_entry_points_raise_without_device(rng):
 
 
 def test_left_out_options_raise_not_implemented():
-    """What the closure slice left out says so (ROADMAP queue 1 item 7c) and
-    is never silently ignored."""
+    """No constructor option of the system raises NotImplementedError any
+    more: each one runs, none is silently ignored (the native index exists
+    or construction raises), and the one contradictory combination raises
+    ValueError. Without a device the system raises for want of CUDA."""
     from svi_mapper_tpu_torch.io.synthetic import default_camera
     from svi_mapper_tpu_torch.mapping.closure import KeyframeDatabase
     from svi_mapper_tpu_torch.models.slam import SLAMSystem
 
     cam = default_camera(128, 64, device="cpu")
-    for kw in (dict(async_closure=True), dict(overlap_backend=True),
-               dict(native_index=True)):
-        with pytest.raises(NotImplementedError, match="item 7c"):
-            SLAMSystem(cam, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        KeyframeDatabase.create(4, 8, native_index=True, device="cpu")
+    for kw, attr in ((dict(async_closure=True), "_closure_pool"),
+                     (dict(overlap_backend="force"), "_bk_pool")):
+        s = SLAMSystem(cam, device="cpu", **kw)
+        assert getattr(s, attr) is not None
+        s.close()
+        assert getattr(s, attr) is None
+    s = SLAMSystem(cam, device="cpu", native_index=True)
+    assert s.db.index is not None
+    assert KeyframeDatabase.create(4, 8, native_index=True, device="cpu").index is not None
+    with pytest.raises(ValueError, match="subsumed"):
+        SLAMSystem(cam, device="cpu", async_closure=True, overlap_backend=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SLAMSystem(cam, async_closure=True)
 
 
 def test_kernel_paths_report():
@@ -313,6 +329,55 @@ def test_kernel_paths_report():
     assert paths.launch_counts()["hamming_matrix"] == 3
     paths.reset_launch_counts()
     assert sum(paths.launch_counts().values()) == 0
+
+
+def test_launch_counts_from_two_threads_sum_exactly():
+    """The closure and back-end workers launch K4-K6 from their own threads
+    while the tracker launches K1-K3: every wrapper counts through
+    ``paths.count_launch``, under one lock, so concurrent launches from two
+    threads sum exactly, and each thread's tally is kept apart."""
+    import inspect
+    import threading
+
+    from svi_mapper_tpu_torch.ops import (
+        ba_kernel,
+        descriptors,
+        hamming,
+        paths,
+        stereo_kernel,
+        track_kernel,
+    )
+
+    for mod in (ba_kernel, descriptors, hamming, stereo_kernel, track_kernel):
+        src = inspect.getsource(mod)
+        assert "_launches +=" not in src and "paths.count_launch(__name__" in src
+    paths.reset_launch_counts()
+    n = 20000
+
+    def launch(entries):
+        for _ in range(n):
+            for mod, entry in entries:
+                paths.count_launch(mod.__name__, entry)
+
+    workers = [threading.Thread(target=launch, name=name, args=(entries,))
+               for name, entries in (
+                   ("tracker", [(track_kernel, "track_scores"),
+                                (hamming, "pool_nn_counts")]),
+                   ("backend_0", [(ba_kernel, "schur_assemble"),
+                                  (hamming, "pool_nn_counts")]))]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    counts = paths.launch_counts()
+    assert counts["pool_nn_counts"] == 2 * n
+    assert counts["track_scores"] == counts["schur_assemble"] == n
+    assert paths.launch_counts_by_thread() == {
+        "tracker": {"track_scores": n, "pool_nn_counts": n},
+        "backend_0": {"schur_assemble": n, "pool_nn_counts": n}}
+    paths.reset_launch_counts()
+    assert sum(paths.launch_counts().values()) == 0
+    assert paths.launch_counts_by_thread() == {}
 
 
 def test_fp32_matmul_guard():

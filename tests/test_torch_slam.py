@@ -327,14 +327,35 @@ def test_ba_writeback_skips_rows_on_the_host(rng):
 
 
 def test_left_out_options_raise():
+    """Each option of item 7c constructs and closes as in the JAX package:
+    the closure worker, the back-end worker ("force"; True on the CPU, one
+    device, warns and runs synchronously), the native index; both workers
+    at once raise ValueError in both packages; without a device, CUDA is
+    required."""
     cam = tsyn.default_camera(128, 64, device="cpu")
-    for kw in (dict(async_closure=True), dict(overlap_backend=True),
-               dict(overlap_backend="force"), dict(native_index=True)):
-        with pytest.raises(NotImplementedError, match="7c"):
-            tslam.SLAMSystem(cam, TPARAMS, device="cpu", **kw)
+    s = tslam.SLAMSystem(cam, TPARAMS, device="cpu", async_closure=True)
+    assert s._closure_pool is not None and s._bk_pool is None
+    s.close()
+    s.close()                                       # idempotent
+    assert s._closure_pool is None
+    s = tslam.SLAMSystem(cam, TPARAMS, device="cpu", overlap_backend="force")
+    assert s._bk_pool is not None and s._closure_pool is None
+    s.close()
+    with pytest.warns(UserWarning, match="single visible device"):
+        s = tslam.SLAMSystem(cam, TPARAMS, device="cpu", overlap_backend=True)
+    assert s._bk_pool is None
+    s = tslam.SLAMSystem(cam, TPARAMS, device="cpu", native_index=True)
+    assert s.db.index is not None and s.db.index.size == 0
+    for pkg, c in ((jslam, jsyn.default_camera(128, 64)), (tslam, cam)):
+        kw = {} if pkg is jslam else {"device": "cpu"}
+        with pytest.raises(ValueError, match="subsumed"):
+            pkg.SLAMSystem(c, async_closure=True, overlap_backend="force", **kw)
     s = tslam.SLAMSystem(cam, TPARAMS, device="cpu")
     s.close()
     assert s._gravity_priors(3, 3) is None and s._gravity_ba_terms([], 8) is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tslam.SLAMSystem(cam, TPARAMS, async_closure=True)
 
 
 def test_keyframe_records_cross(rng):

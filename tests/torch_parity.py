@@ -15,6 +15,42 @@ CPU = "cpu"
 torch.set_num_threads(2)
 
 
+def float64_bundle_adjust(mp) -> None:
+    """Through the monkeypatch ``mp``, run both packages' ``bundle_adjust``
+    (as ``models.slam`` calls it) in float64: the float inputs widened, the
+    float results rounded back to float32. A float32 BA of a window with far
+    landmarks is ill-conditioned in both packages; in float64 the two agree
+    to float32 rounding."""
+    import jax
+    import jax.numpy as jnp
+
+    from svi_mapper_tpu.models import slam as jslam
+    from svi_mapper_tpu_torch.models import slam as tslam
+
+    jba, tba = jslam.ba_mod.bundle_adjust, tslam.ba_mod.bundle_adjust
+
+    def port(*a, **k):
+        wide = lambda x: x.double() if torch.is_tensor(x) and x.is_floating_point() else x  # noqa: E731
+        r = tba(*map(wide, a), **{n: wide(v) for n, v in k.items()})
+        return dataclasses.replace(r, **{
+            f.name: getattr(r, f.name).float() for f in dataclasses.fields(r)
+            if getattr(r, f.name).is_floating_point()})
+
+    def jax_(*a, **k):
+        def wide(x):
+            if isinstance(x, (np.ndarray, jax.Array)) and jnp.issubdtype(x.dtype, jnp.floating):
+                return jnp.asarray(np.asarray(x), jnp.float64)
+            return x
+        with jax.enable_x64():
+            r = jba(*map(wide, a), **{n: wide(v) for n, v in k.items()})
+            out = {f.name: np.asarray(getattr(r, f.name)) for f in dataclasses.fields(r)}
+        return type(r)(**{n: jnp.asarray(v.astype(np.float32) if v.dtype == np.float64 else v)
+                          for n, v in out.items()})
+
+    mp.setattr(jslam.ba_mod, "bundle_adjust", jax_)
+    mp.setattr(tslam.ba_mod, "bundle_adjust", port)
+
+
 def words(a) -> torch.Tensor:
     """JAX/numpy uint32 packed words -> the port's int32 tensor (same bits)."""
     return convert.words_from_numpy(np.asarray(a), CPU)
