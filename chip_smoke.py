@@ -88,7 +88,24 @@ one CUDA card, ``nvcc`` and nothing from the network. It
    replay's state); and
    ``tools/create_cloud`` -> ``match_clouds`` -> ``bench_matching`` on the
    card (``cloud_tools``: card == CPU, K6's matrix held against
-   ``hamming_packed``).
+   ``hamming_packed``); and
+9. drives the entry points a user calls: the loop rendered at twice the
+   frame rate (416 frames: the tools' default parameters veto every BA at
+   the 208-frame spacing) written as a KITTI tree (8-bit PNGs, times, the
+   rendering camera's calib.txt, camera->world poses) through ``tools/acceptance`` with its default accuracy and
+   closure gates (``ACCEPTANCE PASSED``, its frames/s beside the 20.8 fps
+   default gate), ``tools/run_kitti`` (``--gt --frames 32``; ``--slam
+   --chunk 32``) and ``run_demo`` (defaults; ``--slam --trajectory loop``)
+   (``cli_entry_points``); ``compute_descriptors`` -> ``create_vocabulary``,
+   ``triangulation_sampling``, the three trajectory CLIs on acceptance's
+   trajectory and ``view_map`` on ``slam_loop``'s checkpoint
+   (``offline_tools``); ``tools/validate_kernels`` (``kernel_validation``:
+   exit 0, every kernel launched); ``bundle_adjust_sharded`` through a
+   one-rank NCCL group at 16 x 8192 (K4) and 64 x 4096 (K5), equal to
+   ``bundle_adjust`` bit for bit, and ``tools/bench_scaling``
+   (``sharded_ba``); ``eval.utilization.utilization_report()`` at
+   1241 x 376, every share in (0, 1.05] (``utilization``). Each phase
+   requires the kernels of its path to have launched.
 
 Every phase prints one line of JSON. Any failure raises, so the exit code
 is non-zero and the final line is not printed. The last line is
@@ -97,9 +114,11 @@ is non-zero and the final line is not printed. The last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -152,15 +171,6 @@ def max_abs_err(a, b) -> int:
 
     # int32 bit patterns: compare as int64 so the difference cannot wrap
     return int(torch.max(torch.abs(a.to(torch.int64) - b.to(torch.int64))))
-
-
-def unique_pixels(h, w, ys, xs) -> int:
-    """Number of distinct field pixels a set of gathers touches."""
-    import torch
-
-    mask = torch.zeros((h, w), dtype=torch.bool, device=ys.device)
-    mask[ys.reshape(-1).long(), xs.reshape(-1).long()] = True
-    return int(mask.sum())
 
 
 def sm_clock_hz() -> float | None:
@@ -338,6 +348,7 @@ def check_kernels(device, h: int, w_raw: int, n: int, max_disparity: int,
     from svi_mapper_tpu_torch.ops import (
         cuda_build,
         descriptors,
+        paths,
         stereo_kernel,
         track_kernel,
     )
@@ -368,8 +379,7 @@ def check_kernels(device, h: int, w_raw: int, n: int, max_disparity: int,
         k3["device_ms"] = traced_device_ms(
             lambda: descriptors.brief_dense_fused(img_l), ("brief_dense_kernel",))
         k3["plain_ms"] = time_ms(lambda: descriptors.smooth_brief_dense_plain(img_l), 3, 1)
-        k3["bound_ms"], k3["bound_by"] = bound(px * 4 + px * 32 + 256 * 16,
-                                               px * (256 + 20))
+        k3["bound_ms"], k3["bound_by"] = bound(*paths.brief_dense_work(h, wp))
         # the design's shared loads per pixel, and the time they take at
         # one warp-wide load per clock and SM
         design = descriptors.brief_schedule_stats(descriptors.BRIEF_ROWS)
@@ -402,14 +412,8 @@ def check_kernels(device, h: int, w_raw: int, n: int, max_disparity: int,
               pixels_scored_per_landmark={"mean": float(listed.float().mean()),
                                           "max": int(listed.max()), "window": win})
     if timed:
-        _, _, x0, y0 = origin
-        rows = torch.arange(track_kernel.WIN_H, device=device)
-        cols = torch.arange(track_kernel.WIN_W, device=device)
-        ys = (y0[:, None, None] + rows[None, :, None]).expand(-1, -1, track_kernel.WIN_W)
-        xs = (x0[:, None, None] + cols[None, None, :]).expand(-1, track_kernel.WIN_H, -1)
         # the field pixels the tiers can accept: all the function needs
-        touched = unique_pixels(h, wp, ys[mask], xs[mask])
-        scored = int(listed.sum())
+        touched, scored = track_kernel.scored_pixels(h, wp, inp["uv"], inp["band"])
         k1["ms"] = time_ms(lambda: track_kernel.track_scores(*args, **cuts), 50)
         # the launch alone, without the wrapper's checks
         launch1 = lambda: track_kernel.launch_track_scores(  # noqa: E731
@@ -418,11 +422,7 @@ def check_kernels(device, h: int, w_raw: int, n: int, max_disparity: int,
         k1["launch_only_ms"] = time_ms(launch1, 50)
         k1["device_ms"] = traced_device_ms(launch1, ("track_scores_kernel",))
         k1["plain_ms"] = time_ms(lambda: track_kernel.window_scores(*args, **cuts), 3, 1)
-        # field pixels touched, 2 floats + 5 ints + 2 descriptors in and
-        # 4 ints out per landmark; 16 xor + 16 popcount + 14 add + ~20 for
-        # the tiers and the key per scored pixel
-        k1["bound_ms"], k1["bound_by"] = bound(
-            touched * 32 + n * (2 * 4 + 5 * 4 + 2 * 32 + 4 * 4), scored * 66)
+        k1["bound_ms"], k1["bound_by"] = bound(*paths.track_scores_work(n, touched, scored))
         # its popcounts at 16 per clock and SM
         k1["design"] = {"pixels_scored": scored, "popcounts": 16 * scored,
                         "ceiling_ms": ceiling_ms(16 * scored, 16)}
@@ -447,8 +447,7 @@ def check_kernels(device, h: int, w_raw: int, n: int, max_disparity: int,
                cases=check_stereo_match_cases(field_r, inp["uv"], desc_k, max_disparity))
     k2m["planted"] = check_stereo_match_planted(device, h, wp, n, max_disparity)
     if timed:
-        cols = x0p[:, None] + torch.arange(De, device=device)[None, :]
-        touched = unique_pixels(h, wp, v_r[:, None].expand(-1, De), cols)
+        touched = stereo_kernel.span_pixels(inp["uv"], h, wp, De)
         lib = cuda_build.load_library()
         uv32 = inp["uv"].contiguous()
         k2["ms"] = time_ms(lambda: stereo_kernel.stereo_profiles(
@@ -459,10 +458,7 @@ def check_kernels(device, h: int, w_raw: int, n: int, max_disparity: int,
         k2["device_ms"] = traced_device_ms(launch2, ("stereo_profiles_kernel",))
         k2["plain_ms"] = time_ms(lambda: stereo_kernel.row_span_profiles(
             field_r, *stereo_kernel.span_origin(inp["uv"], h, wp, De)[1:], desc_k, De), 5, 1)
-        # span pixels touched, keypoint + descriptor in, profile + origin
-        # out; 8 xor + 8 popcount + 7 add per candidate
-        k2["bytes"] = touched * 32 + n * (2 * 4 + 32) + n * (De + 2) * 4
-        k2["operations"] = n * De * 23
+        k2["bytes"], k2["operations"] = paths.stereo_profiles_work(n, De, touched)
         k2["bound_ms"], k2["bound_by"] = bound(k2["bytes"], k2["operations"])
         # its popcounts at 16 per clock and SM
         k2["design"] = {"popcounts": 8 * n * De, "ceiling_ms": ceiling_ms(8 * n * De, 16)}
@@ -482,11 +478,7 @@ def check_kernels(device, h: int, w_raw: int, n: int, max_disparity: int,
         valid = torch.ones(n, dtype=torch.bool, device=device)
         k2m["match_stereo_ms"] = time_ms(lambda: match_stereo(
             field_r, inp["uv"], desc_k, valid, cam, **mkw), 50)
-        # the span read once, keypoint, descriptor, centre and range in,
-        # six ints out; the same operations as the profile, and a compare,
-        # a mask and a min per candidate
-        k2m["bytes"] = touched * 32 + n * (2 * 4 + 32 + 2 * 4) + n * 6 * 4
-        k2m["operations"] = n * De * 30
+        k2m["bytes"], k2m["operations"] = paths.stereo_match_work(n, De, touched)
         k2m["bound_ms"], k2m["bound_by"] = bound(k2m["bytes"], k2m["operations"])
         k2m["design"] = {"popcounts": 8 * n * De, "ceiling_ms": ceiling_ms(8 * n * De, 16)}
     results += [k2, k2m]
@@ -1044,20 +1036,6 @@ def profile_frames(tracker, imgs_l, imgs_r, unprofiled_ms_per_frame: float,
 
 BA_WIDTH, BA_HEIGHT = 1241, 376
 BA_LANDMARKS = 4096
-# the tolerances of the CPU tests: relative to the largest entry of the
-# plain version's output; rhs cancels, so it is held against 100 x max|b_l|.
-# The largest entries of Hll_inv are the unobserved landmarks' 1 / damping,
-# a thousand times an observed landmark's, so Hll_inv is held per landmark
-# as well, each 3x3 block against its own largest entry: 5e-3, because the
-# cofactors cancel (float32 alone is up to 8e-4 from float64 on a weakly
-# observed landmark); a wrong block is off by its own size
-SCHUR_NAMES = ("S", "rhs", "Hll_inv", "b_l", "W")
-SCHUR_TOL = dict(S=2e-4, rhs=5e-3, Hll_inv=2e-4, b_l=2e-4, W=2e-4,
-                 Hll_inv_block=5e-3)
-# float operations per (keyframe, landmark) of the shared body, counted from
-# csrc/schur_assemble.cu: point 18, projection and residuals 31, weight 8,
-# Jacobian rows 24 + 36 + 60, H_ll/b_l 63, W rows 126, H_pp/b_p 189
-FLOPS_PER_OBSERVATION = 555
 
 
 def ba_problem(K: int, L: int, seed: int, noise: float = 0.5,
@@ -1104,21 +1082,6 @@ def ba_problem(K: int, L: int, seed: int, noise: float = 0.5,
     return dict(T=T, X_true=X, X0=X0.astype(np.float32),
                 obs=np.clip(obs, -1e4, 1e4).astype(np.float32), mask=mask,
                 fix=fix, intr=(fx, fy, cx, cy, bq))
-
-
-def schur_errors(got, want) -> dict:
-    """Per output: max |got - want| over the scale its tolerance names."""
-    import torch
-
-    scale_rhs = float(torch.max(torch.abs(want[3]))) * 100
-    out = {}
-    for nm, a, b in zip(SCHUR_NAMES, got, want):
-        scale = scale_rhs if nm == "rhs" else max(float(torch.max(torch.abs(b))), 1e-9)
-        out[nm] = float(torch.max(torch.abs(a.double() - b.double()))) / scale
-    block_scale = want[2].double().abs().amax((1, 2)).clamp(min=1e-30)
-    out["Hll_inv_block"] = float(torch.max(
-        (got[2].double() - want[2].double()).abs().amax((1, 2)) / block_scale))
-    return out
 
 
 def ptxas_report(source: str, marker: str) -> list[dict]:
@@ -1198,33 +1161,11 @@ def padded_ba_problem(K0: int, K: int, L0: int, L: int, seed: int):
 SCHUR_KERNELS = ("schur_assembly_kernel", "schur_product_kernel", "schur_reduce_kernel")
 
 
-def schur_counts(mask, K: int, L: int) -> dict:
-    """Bytes and operations the function needs on this window's data: each
-    input read once and each output written once; the assembly's
-    operations per observation, and C = W Hll^-1 (90 operations per
-    observed keyframe-landmark pair), the rhs column (36) and the product
-    (216 per 6x6 block and landmark) only where an observation is, the
-    product over the upper block triangle: n (n + 1) / 2 blocks for a
-    landmark that n keyframes observe."""
-    import numpy as np
-
-    n_l = mask.sum(0).astype(np.int64)
-    n_obs = int(n_l.sum())
-    pairs = int((n_l * (n_l + 1) // 2).sum())
-    moved_in = 4 * (16 * K + 3 * L + 5 * K * L)
-    moved_out = 4 * (36 * K * K + 6 * K + 12 * L + 18 * K * L)
-    return dict(bytes=moved_in + moved_out,
-                flops=n_obs * (FLOPS_PER_OBSERVATION + 90 + 36) + 216 * pairs,
-                product_flops_upper=216 * pairs,
-                product_flops_dense_upper=216 * (K * (K + 1) // 2) * L,
-                observations=n_obs)
-
-
 def check_schur_kernel(device, name: str, K: int, L: int, timed: bool,
                        padded: bool = False) -> dict:
     import torch
 
-    from svi_mapper_tpu_torch.ops import ba_kernel
+    from svi_mapper_tpu_torch.ops import ba_kernel, paths
 
     fn, plain = {
         "schur_assemble": (ba_kernel.schur_assemble, ba_kernel.schur_assemble_plain),
@@ -1252,8 +1193,9 @@ def check_schur_kernel(device, name: str, K: int, L: int, timed: bool,
     require(all(torch.isfinite(g).all() for g in got), f"{name}: non-finite output")
     require(got[0].shape == (K, 6, K, 6) and got[4].shape == (3, 6 * K, L),
             f"{name}: output shapes")
-    err = schur_errors(got, want32)
-    bad = {nm: float(f"{e:.3e}") for nm, e in err.items() if not e < SCHUR_TOL[nm]}
+    err = ba_kernel.schur_errors(got, want32)
+    bad = {nm: float(f"{e:.3e}") for nm, e in err.items()
+           if not e < ba_kernel.SCHUR_TOL[nm]}
     require(not bad, f"{name} K={K} L={L} padded={padded}: off by {bad}")
     # the inputs reach every branch
     pc_z = (torch.einsum("kij,lj->kli", args[0][:, :3, :3], args[1])
@@ -1280,8 +1222,8 @@ def check_schur_kernel(device, name: str, K: int, L: int, timed: bool,
     out = dict(
         name=name, K=K, L=L, padded=padded, rel_err_vs_plain=err,
         max_abs_err=float(torch.max(torch.abs(got[0] - want32[0]))),
-        rel_err_vs_float64=dict(kernel=schur_errors(got, want64),
-                                plain=schur_errors(want32, want64)),
+        rel_err_vs_float64=dict(kernel=ba_kernel.schur_errors(got, want64),
+                                plain=ba_kernel.schur_errors(want32, want64)),
         # partials are added in a fixed order: no run-to-run change
         same_bits_twice=all(torch.equal(a, b) for a, b in zip(got, again)))
     require(out["same_bits_twice"], f"{name}: two runs differ")
@@ -1315,7 +1257,7 @@ def check_schur_kernel(device, name: str, K: int, L: int, timed: bool,
         B = got[4].permute(1, 0, 2).reshape(6 * K, -1)
         out["product_matmul_ms"] = time_ms(lambda: torch.matmul(A, B.T), 20)
         out["product_matmul_flops"] = 2 * (6 * K) ** 2 * 3 * L
-        counts = schur_counts(p["mask"], K, L)
+        counts = paths.schur_work(p["mask"], K, L)
         out.update(counts)
         out["bound_ms"], out["bound_by"] = bound(counts["bytes"], counts["flops"])
     return out
@@ -1758,7 +1700,7 @@ def check_closure_kernel(device) -> list[dict]:
     version's counts, into a buffer pre-filled with -1."""
     import torch
 
-    from svi_mapper_tpu_torch.ops import cuda_build, hamming
+    from svi_mapper_tpu_torch.ops import cuda_build, hamming, paths
 
     lib = cuda_build.load_library()
     rows = []
@@ -1791,10 +1733,8 @@ def check_closure_kernel(device) -> list[dict]:
             # not a library call of the same function (PyTorch has no
             # popcount): the bit-matmul identity, unpack + one float32 matmul
             row["matmul_identity_ms"] = time_ms(lambda: hamming.hamming_mxu(a, b), 10, 2)
-            # each descriptor read once, the matrix written once; the
-            # identity's operations (an AND or multiply and an add per pair
-            # and bit) on the tensor cores
-            row["bytes"], row["operations"] = (N + M) * 32 + N * M * 4, 2 * N * M * 256
+            # the identity's operations on the tensor cores
+            row["bytes"], row["operations"] = paths.hamming_matrix_work(1, N, M)
             row["bound_ms"], row["bound_by"], row["design"] = tensor_core_bound(
                 row["bytes"], row["operations"], 8 * N * M)
         elif B == 8:
@@ -1856,7 +1796,7 @@ def pool_inputs(seed: int, lead: tuple, P: int, C: int, Pr: int, device):
 def check_pool_counts(device, lib, B, P: int, C: int, Pr: int, timed: bool) -> dict:
     import torch
 
-    from svi_mapper_tpu_torch.ops import hamming
+    from svi_mapper_tpu_torch.ops import hamming, paths
 
     lead = () if B is None else B if isinstance(B, tuple) else (B,)
     q, vq, r, vr = pool_inputs(43 + P + Pr, lead, P, C, Pr, device)
@@ -1890,11 +1830,9 @@ def check_pool_counts(device, lib, B, P: int, C: int, Pr: int, timed: bool) -> d
         row["launch_only_ms"] = time_ms(launch, 200)
         row["device_ms"] = traced_device_ms(launch, ("pool_nn_counts_kernel",))
         row["plain_ms"] = time_ms(lambda: hamming.pool_nn_counts_plain(*args), 5, 1)
-        # descriptors and masks read once, the counts written once; the
-        # identity's operations on the tensor cores
+        # the identity's operations on the tensor cores
         pairs = nb * P * C * Pr
-        row["bytes"] = nb * (P * 33 + C * Pr * 33 + C * 4)
-        row["operations"] = 2 * pairs * 256
+        row["bytes"], row["operations"] = paths.pool_nn_counts_work(nb, P, C, Pr)
         row["bound_ms"], row["bound_by"], row["design"] = tensor_core_bound(
             row["bytes"], row["operations"], 8 * pairs)
     return row
@@ -2226,6 +2164,28 @@ def record_ba_windows(system, windows: list) -> None:
     system._assemble_ba_window = recording
 
 
+@contextlib.contextmanager
+def recording_schur_shapes():
+    """Inside: the set of ``(entry, K, L)`` of every K4 / K5 launch made in
+    this process (``ops.ba_kernel.launch_schur_system`` wrapped), for the
+    entry points whose systems build their own BA windows."""
+    from svi_mapper_tpu_torch.ops import ba_kernel
+
+    shapes = set()
+    launch = ba_kernel.launch_schur_system
+
+    def recording(T, X, obs, ow, *args, tiled: bool, **kwargs):
+        shapes.add(("schur_assemble_tiled" if tiled else "schur_assemble",
+                    int(ow.shape[0]), int(ow.shape[1])))
+        return launch(T, X, obs, ow, *args, tiled=tiled, **kwargs)
+
+    ba_kernel.launch_schur_system = recording
+    try:
+        yield shapes
+    finally:
+        ba_kernel.launch_schur_system = launch
+
+
 def windows_by_shape(windows: list, counts: dict) -> list[dict]:
     """Per BA window shape: how many windows and the launches they made (the
     count at the next window of the kernel, or at the end, less the count at
@@ -2266,20 +2226,21 @@ def loop_params():
         max_motion_scaling_for_optimization=2.5)
 
 
-def render_loop(device):
+def render_loop(device, n_frames: int = LOOP_FRAMES):
     """The bench loop's sequence and its frames rendered on the card:
-    ``(seq, imgs_l, imgs_r, seconds)``."""
+    ``(seq, imgs_l, imgs_r, seconds)``; ``n_frames`` samples the same loop
+    more or less densely."""
     import torch
 
     from svi_mapper_tpu_torch.io import synthetic
 
     seq = synthetic.SyntheticSequence(
-        n_frames=LOOP_FRAMES, width=W_RAW, height=H, trajectory="loop",
+        n_frames=n_frames, width=W_RAW, height=H, trajectory="loop",
         loop_radius=LOOP_RADIUS, device=device)
     t0 = time.perf_counter()
-    imgs_l = torch.empty((LOOP_FRAMES, H, W_RAW), dtype=torch.float32, device=device)
+    imgs_l = torch.empty((n_frames, H, W_RAW), dtype=torch.float32, device=device)
     imgs_r = torch.empty_like(imgs_l)
-    for i in range(LOOP_FRAMES):
+    for i in range(n_frames):
         imgs_l[i], imgs_r[i], _ = seq.frame(i)
     torch.cuda.synchronize()
     return seq, imgs_l, imgs_r, time.perf_counter() - t0
@@ -3748,6 +3709,312 @@ def run_cloud_tools(device) -> tuple[dict, dict]:
     return report, counts
 
 
+# ---------------------------------------------------------------------------
+# the entry points a user calls: the command-line tools on a KITTI tree, the
+# offline tools, the kernel validator, the sharded BA and the utilization
+# report
+# ---------------------------------------------------------------------------
+
+TOOL_TREE_FRAMES = 32          # run_kitti --gt --frames
+# The tools run DEFAULT_PARAMS, whose max_motion_scaling_for_optimization
+# (1.5) vetoes every BA at the loop's 0.9 m and 0.035 rad a frame (motion
+# scaling ~1.8; the bench sets 2.5, and neither package's tools take the
+# parameter): the tree is the same loop at twice the frame rate, which
+# halves the motion per frame.
+TOOL_LOOP_FRAMES = 2 * LOOP_FRAMES
+KERNEL_ENTRIES = ("track_scores", "stereo_match", "brief_dense_fused", "schur_assemble",
+                  "schur_assemble_tiled", "pool_nn_counts", "hamming_matrix",
+                  "stereo_profiles")
+
+
+def write_kitti_tree(root: Path, seq, imgs_l, imgs_r, rate_hz: float = 20.0) -> Path:
+    """The loop as a KITTI odometry tree under ``root``: 8-bit grayscale
+    PNGs in ``sequences/00/image_0`` / ``image_1`` (cv2, else PIL),
+    ``times.txt`` at ``rate_hz``, ``calib.txt`` with the P0 / P1 of the camera
+    the frames were rendered with (KITTI 00's focal length, 0.54 m
+    baseline), and ``poses/00.txt`` (camera->world, 3x4 per line)."""
+    import numpy as np
+    import torch
+
+    try:
+        import cv2
+
+        write = lambda path, a: cv2.imwrite(str(path), a)  # noqa: E731
+    except ImportError:
+        from PIL import Image
+
+        write = lambda path, a: Image.fromarray(a).save(path)  # noqa: E731
+    seq_dir = root / "sequences" / "00"
+    for d in ("image_0", "image_1"):
+        (seq_dir / d).mkdir(parents=True, exist_ok=True)
+    to_u8 = lambda t: t.round().clamp(0, 255).to(torch.uint8)  # noqa: E731
+    left, right = to_u8(imgs_l).cpu().numpy(), to_u8(imgs_r).cpu().numpy()
+    for i in range(len(left)):
+        write(seq_dir / "image_0" / f"{i:06d}.png", left[i])
+        write(seq_dir / "image_1" / f"{i:06d}.png", right[i])
+    (seq_dir / "times.txt").write_text(
+        "".join(f"{i / rate_hz:.6e}\n" for i in range(len(left))))
+    P = [c.P.cpu().numpy().astype(np.float64) for c in (seq.cam.left, seq.cam.right)]
+    (seq_dir / "calib.txt").write_text("".join(
+        f"P{k}: " + " ".join(f"{x:.12e}" for x in P[k].reshape(-1)) + "\n" for k in (0, 1)))
+    (root / "poses").mkdir(exist_ok=True)
+    (root / "poses" / "00.txt").write_text("".join(
+        " ".join(f"{x:.12e}" for x in np.linalg.inv(np.asarray(T, np.float64))[:3].reshape(-1))
+        + "\n" for T in seq.poses_wc))
+    return root
+
+
+def run_tool(main_fn, argv: list[str]) -> tuple[int, str, float]:
+    """A tool's ``main(argv)`` in this process: (exit code, its standard
+    output, seconds)."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            code = main_fn(argv) or 0
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+    return code, buf.getvalue(), time.perf_counter() - t0
+
+
+def launched(counts: dict, names, where: str) -> None:
+    missing = [n for n in names if counts[n] == 0]
+    require(not missing, f"{where}: {missing} launched no time: {counts}")
+
+
+def run_cli_entry_points(device, tree: Path) -> tuple[dict, dict]:
+    """``tools/acceptance`` on the loop's KITTI tree with its default ATE,
+    relative-error and closure gates (the throughput gate at 0, its default
+    reported beside the measured frames/s), ``tools/run_kitti`` with
+    ``--gt --frames 32`` and with ``--slam --chunk 32`` over the first 208
+    frames, ``run_demo`` with
+    its defaults and with ``--slam --trajectory loop`` round the bench loop;
+    each on the card with
+    the launch counts set to 0 just before it and read just after. K1-K3
+    launch in every run, K4 and K6's pool count in every SLAM run."""
+    import re
+
+    from svi_mapper_tpu_torch import run_demo
+    from svi_mapper_tpu_torch.tools import acceptance, run_kitti
+
+    traj = tree / "acceptance_traj.txt"
+    runs = {
+        "acceptance": (acceptance.main, [str(tree), "--min-fps", "0", "--save", str(traj)]),
+        "run_kitti_gt": (run_kitti.main, [str(tree), "--gt", "--frames", str(TOOL_TREE_FRAMES)]),
+        # half the tree (its first 208 frames: 3 local BA windows and 10
+        # closure queries on the CPU), which acceptance runs whole
+        "run_kitti_slam": (run_kitti.main, [str(tree), "--slam", "--chunk", "32",
+                                            "--frames", str(LOOP_FRAMES)]),
+        "run_demo": (run_demo.main, []),
+        # the demo's default loop (30 frames round 12 m: 2.9 m and 0.24 rad a
+        # frame) loses track at once in both packages; the tree's loop
+        "run_demo_slam": (run_demo.main, ["--slam", "--trajectory", "loop", "--frames",
+                                          str(TOOL_LOOP_FRAMES), "--loop-radius",
+                                          str(LOOP_RADIUS)]),
+    }
+    report, all_counts = {"phase": "cli_entry_points"}, {}
+    for name, (fn, argv) in runs.items():
+        reset_launch_counts()
+        code, out, seconds = run_tool(fn, argv)
+        counts = launch_counts()
+        all_counts[name] = counts
+        lines = out.strip().splitlines()
+        report[name] = {"exit": code, "seconds": seconds, "launches": counts,
+                        "tail": lines[-12:] if name.startswith(("acceptance", "run_kitti"))
+                        else lines[-9:]}
+        require(code == 0, f"{name} exited {code}:\n{out[-3000:]}")
+        launched(counts, FRONTEND_KERNELS, name)
+        if name in ("acceptance", "run_kitti_slam", "run_demo_slam"):
+            launched(counts, ("schur_assemble", CLOSURE_KERNEL), name)
+        if name == "acceptance":
+            require("ACCEPTANCE PASSED" in out, f"acceptance failed:\n{out[-3000:]}")
+            fps = float(re.search(r"\[PASS\] throughput\s+([0-9.]+) fps", out).group(1))
+            closures = int(re.search(r"loop closures\s+(\d+) accepted", out).group(1))
+            report[name].update(frames_per_s=fps, closures_accepted=closures,
+                                default_fps_gate=acceptance.DEFAULT_MIN_FPS,
+                                default_fps_gate_passes=fps >= acceptance.DEFAULT_MIN_FPS)
+            require(closures >= 1, "acceptance accepted no closure")
+    emit(report)
+    return report, all_counts
+
+
+def run_offline_tools(device, tree: Path, checkpoint: Path) -> tuple[dict, dict]:
+    """``compute_descriptors`` -> ``create_vocabulary`` on four left frames
+    of the tree, ``triangulation_sampling``, ``evaluate_trajectory`` /
+    ``align_trajectory`` / ``interpolate_trajectory`` on acceptance's saved
+    trajectory against the tree's poses, and ``view_map --html`` (and
+    ``--png`` where matplotlib is installed) on ``slam_loop``'s checkpoint."""
+    import importlib.util
+
+    import numpy as np
+
+    from svi_mapper_tpu_torch.tools import (
+        align_trajectory,
+        compute_descriptors,
+        create_vocabulary,
+        evaluate_trajectory,
+        interpolate_trajectory,
+        triangulation_sampling,
+        view_map,
+    )
+
+    work = tree / "offline"
+    imgs = work / "images"
+    imgs.mkdir(parents=True)
+    for i in (0, 100, 200, 300):
+        shutil.copy(tree / "sequences" / "00" / "image_0" / f"{i:06d}.png", imgs)
+    traj, gt = tree / "acceptance_traj.txt", tree / "poses" / "00.txt"
+    times = tree / "sequences" / "00" / "times.txt"
+    (work / "times_mid.txt").write_text(
+        "".join(f"{t + 0.05:.6e}\n" for t in np.loadtxt(times)[:-1]))
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    view = [str(checkpoint), "--html", str(work / "map.html")]
+    if has_mpl:
+        view += ["--png", str(work / "map.png")]
+    runs = {
+        "compute_descriptors": (compute_descriptors.main,
+                                [str(imgs), "-o", str(work / "desc.npz")]),
+        "create_vocabulary": (create_vocabulary.main,
+                              [str(work / "desc.npz"), "-o", str(work / "vocab.npz"),
+                               "--k", "8", "--levels", "3"]),
+        "triangulation_sampling": (triangulation_sampling.main, []),
+        "evaluate_trajectory": (evaluate_trajectory.main, [str(traj), str(gt)]),
+        "align_trajectory": (align_trajectory.main,
+                             [str(traj), str(gt), "-o", str(work / "aligned.txt")]),
+        "interpolate_trajectory": (interpolate_trajectory.main,
+                                   [str(traj), "--times-src", str(times), "--times-dst",
+                                    str(work / "times_mid.txt"), "-o",
+                                    str(work / "resampled.txt")]),
+        "view_map": (view_map.main, view),
+    }
+    reset_launch_counts()
+    report = {"phase": "offline_tools", "matplotlib": has_mpl}
+    for name, (fn, argv) in runs.items():
+        code, out, seconds = run_tool(fn, argv)
+        report[name] = {"exit": code, "seconds": seconds, "tail": out.strip().splitlines()[-6:]}
+        require(code == 0, f"{name} exited {code}:\n{out[-3000:]}")
+    counts = launch_counts()
+    report["launches"] = counts
+    desc = np.load(work / "desc.npz")
+    report["descriptors"] = int(len(desc["desc"]))
+    require(len(desc["desc"]) > 100 and desc["desc"].dtype == np.uint32,
+            f"compute_descriptors: {len(desc['desc'])} descriptors")
+    require(np.loadtxt(work / "resampled.txt").shape == (len(np.loadtxt(times)) - 1, 12),
+            "interpolate_trajectory: wrong number of poses")
+    html = (work / "map.html").read_text()
+    require("const DATA = " in html and "<script src=" not in html, "view_map: no viewer data")
+    if has_mpl:
+        require((work / "map.png").read_bytes()[:4] == b"\x89PNG", "view_map: no PNG")
+    emit(report)
+    return report, counts
+
+
+def run_kernel_validation(device) -> tuple[dict, dict]:
+    """``tools/validate_kernels`` on the card: every kernel against its
+    plain version at the JAX tool's shapes; exit 0, and all six kernels
+    (both entries of K2 and K6) launched."""
+    from svi_mapper_tpu_torch.tools import validate_kernels
+
+    reset_launch_counts()
+    code, out, seconds = run_tool(validate_kernels.main, [])
+    counts = launch_counts()
+    report = {"phase": "kernel_validation", "exit": code, "seconds": seconds,
+              "lines": out.strip().splitlines(), "launches": counts}
+    emit(report)
+    require(code == 0, f"validate_kernels exited {code}:\n{out}")
+    launched(counts, KERNEL_ENTRIES, "validate_kernels")
+    return report, counts
+
+
+def run_sharded_ba(device) -> tuple[dict, dict]:
+    """``parallel.sharded_ba.bundle_adjust_sharded`` through a one-rank
+    NCCL group opened in this process, at 16 x 8192 (K4) and 64 x 4096
+    (K5): ``bundle_adjust``'s bits; then the group is destroyed and
+    ``tools/bench_scaling`` prints its world-size-1 line (its own spawned
+    rank)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from svi_mapper_tpu_torch.io.synthetic import default_camera
+    from svi_mapper_tpu_torch.parallel import distributed
+    from svi_mapper_tpu_torch.parallel.mesh import make_map_mesh
+    from svi_mapper_tpu_torch.parallel.sharded_ba import bundle_adjust_sharded
+    from svi_mapper_tpu_torch.solvers import ba
+    from svi_mapper_tpu_torch.tools import bench_scaling
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{sk.getsockname()[1]}"
+    t0 = time.perf_counter()
+    distributed.initialize(address, 1, 0, device=device)
+    report = {"phase": "sharded_ba", "backend": dist.get_backend(),
+              "initialize_seconds": time.perf_counter() - t0, "cases": []}
+    counts = {k: 0 for k in launch_counts()}
+    try:
+        mesh = make_map_mesh(device=device)
+        cam = default_camera(width=1241, height=376, device=device)
+        for K, L, kernel in ((16, 8192, "schur_assemble"), (64, 4096, "schur_assemble_tiled")):
+            p = bench_scaling.make_problem(K, L)
+            on = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+            args = (on(p["T"]), on(p["X0"]), on(p["obs"]), on(p["mask"]), cam, on(p["fix"]))
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = bundle_adjust_sharded(mesh, *args, device=device)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            case_counts = launch_counts()
+            ref = ba.bundle_adjust(*args, device=device)
+            same = {f: torch.equal(getattr(res, f), getattr(ref, f))
+                    for f in ("T_wc", "points_w", "chi2_initial", "chi2_final", "iterations")}
+            report["cases"].append({"K": K, "L": L, "kernel": kernel, "seconds": seconds,
+                                    "chi2_final": float(res.chi2_final),
+                                    "iterations": int(res.iterations),
+                                    "same_bits_as_bundle_adjust": same,
+                                    "launches": case_counts})
+            require(all(same.values()), f"sharded BA {K} x {L} differs from bundle_adjust: {same}")
+            launched(case_counts, (kernel,), f"sharded BA {K} x {L}")
+            counts = {k: counts[k] + case_counts[k] for k in counts}
+    finally:
+        t0 = time.perf_counter()
+        dist.destroy_process_group()
+        report["destroy_seconds"] = time.perf_counter() - t0
+    # bench_scaling spawns its rank, which imports this script again as
+    # ``__mp_main__`` (cheap: the phases run only under ``__main__``)
+    code, out, seconds = run_tool(bench_scaling.main, [])
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    report["bench_scaling"] = {"exit": code, "seconds": seconds, "lines": lines}
+    report["launches"] = counts
+    emit(report)
+    require(code == 0 and len(lines) == torch.cuda.device_count() and lines[0]["devices"] == 1,
+            f"bench_scaling: {out[-2000:]}")
+    return report, counts
+
+
+def run_utilization(device) -> tuple[dict, dict]:
+    """``eval.utilization.utilization_report()`` at 1241 x 376: every stage's
+    MFU and device-memory share in (0, 1.05] (above raises in the module)."""
+    from svi_mapper_tpu_torch.eval import utilization
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = utilization.utilization_report()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    report = {"phase": "utilization", "seconds": seconds, **rep, "launches": counts}
+    emit(report)
+    print(utilization.format_report(rep), flush=True)
+    for name, row in rep["stages"].items():
+        require(0 < row["mfu"] <= 1.05 and 0 < row["hbm_frac"] <= 1.05,
+                f"utilization {name}: mfu {row['mfu']}, hbm_frac {row['hbm_frac']}")
+    launched(counts, FRONTEND_KERNELS + ("schur_assemble",), "utilization")
+    return report, counts
+
+
 def main() -> int:
     import torch
 
@@ -3755,7 +4022,7 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 1
     import svi_mapper_tpu_torch  # noqa: F401  (fails outside the repository)
-    from svi_mapper_tpu_torch.ops import cuda_build
+    from svi_mapper_tpu_torch.ops import ba_kernel, cuda_build
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -3803,7 +4070,7 @@ def main() -> int:
 
     backend = check_backend_kernels(device)
     schur_build = ptxas_report("schur_assemble.cu", "kernel")
-    emit({"phase": "kernels_backend", "tolerance": SCHUR_TOL, "shapes": backend,
+    emit({"phase": "kernels_backend", "tolerance": dict(ba_kernel.SCHUR_TOL), "shapes": backend,
           "build": schur_build})
     require(not schur_build or all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                                    for r in schur_build),
@@ -3839,6 +4106,7 @@ def main() -> int:
     report, query_counts = run_closure_query(device)
     emit(report)
     ckdir = tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR)
+    tools_dir = tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR)
     loop_keep = {"path": Path(ckdir.name) / "slam_loop.npz"}
     svi_keep = {"path": Path(ckdir.name) / "svi_loop.npz"}
     # the loops save a checkpoint after frame 95 (left out of their times)
@@ -3854,6 +4122,9 @@ def main() -> int:
     loop_keep["report"] = loop
     resume, resume_counts = run_checkpoint_resume(device, loop_keep)
     svi_resume, svi_resume_counts = run_checkpoint_svi(device, svi_keep)
+    # view_map (offline_tools, below) draws slam_loop's checkpoint
+    loop_checkpoint = Path(tools_dir.name) / "slam_loop.npz"
+    shutil.copy(loop_keep["path"], loop_checkpoint)
     del loop_keep, svi_keep
     ckdir.cleanup()
     torch.cuda.empty_cache()
@@ -3867,6 +4138,37 @@ def main() -> int:
     overlap, overlap_counts = run_overlap_backend(device, loop)   # emits its own line
     native_rt, native_counts = run_native_runtime(device)
     tools, tools_counts = run_cloud_tools(device)
+    # 9. the entry points a user calls: the command-line tools on the loop
+    #    written as a KITTI tree, the offline tools, the kernel validator,
+    #    the sharded BA and the utilization report (each with its counts set
+    #    to 0 just before it and read just after)
+    torch.cuda.empty_cache()
+    phase_seconds = {}
+    t_phase = time.perf_counter()
+    tree = Path(tools_dir.name)
+    seq, imgs_l, imgs_r, _ = render_loop(device, TOOL_LOOP_FRAMES)
+    write_kitti_tree(tree, seq, imgs_l, imgs_r)
+    del seq, imgs_l, imgs_r
+    # the K4 / K5 window shapes these phases launch (the CLIs' systems build
+    # their own windows; bench_scaling's spawned rank solves the sharded
+    # phase's 16 x 8192 problem), each held against its plain version below
+    entry_shapes = {}
+    with recording_schur_shapes() as shapes:
+        cli, cli_counts = run_cli_entry_points(device, tree)
+    entry_shapes["cli_entry_points"] = shapes
+    phase_seconds["cli_entry_points"] = time.perf_counter() - t_phase
+    for name, fn, args in (("offline_tools", run_offline_tools, (tree, loop_checkpoint)),
+                           ("kernel_validation", run_kernel_validation, ()),
+                           ("sharded_ba", run_sharded_ba, ()),
+                           ("utilization", run_utilization, ())):
+        t_phase = time.perf_counter()
+        with recording_schur_shapes() as shapes:
+            _, cli_counts[name] = fn(device, *args)
+        entry_shapes[name] = shapes
+        phase_seconds[name] = time.perf_counter() - t_phase
+    tools_dir.cleanup()
+    emit({"phase": "entry_point_seconds", **phase_seconds,
+          "total": sum(phase_seconds.values())})
     # every BA window of the loops has a shape at which K4 / K5 were held
     # against their plain versions: the expected ones in the kernel phase
     # above, any other one now
@@ -3882,6 +4184,15 @@ def main() -> int:
     emit({"phase": "kernels_backend_loop_shapes",
           "checked_in_kernel_phase": [list(s) for s in LOOP_BA_SHAPES],
           "checked_after_the_loops": [at_shape[shape] for shape in late]})
+    # the same for every window shape the entry points launched (not timed)
+    t_check = time.perf_counter()
+    entry_late = sorted(set().union(*entry_shapes.values()) - set(at_shape))
+    for shape in entry_late:
+        at_shape[shape] = check_schur_kernel(device, *shape, timed=False)
+    emit({"phase": "kernels_backend_entry_point_shapes",
+          "launched": {name: sorted(map(list, shapes)) for name, shapes in entry_shapes.items()},
+          "checked_after_the_entry_points": [at_shape[shape] for shape in entry_late],
+          "seconds": time.perf_counter() - t_check})
     # launches of each kernel entry on the path that is its own: the
     # front-end, the map optimisation on generated windows, and the whole
     # system's loop (the closure entries'; the loop's counts of all eight go
@@ -3929,6 +4240,7 @@ def main() -> int:
             "launches_native_queries": native_counts["queries"][k["name"]],
             "launches_native_dump": native_counts["dump"][k["name"]],
             "launches_cloud_tools": tools_counts[k["name"]],
+            **{f"launches_{phase}": c[k["name"]] for phase, c in cli_counts.items()},
             "on_path": k["name"] not in OFF_PATH_ENTRIES,
         }
         for extra in ("launch_only_ms", "rel_err_vs_plain", "K", "L", "flops",

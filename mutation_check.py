@@ -496,8 +496,8 @@ def witnessed(name):
         K, L = args[3].shape
         row = errs.setdefault(f'{name} {K}x{L}', {'calls': 0, 'kernel': {}, 'plain': {}})
         row['calls'] += 1
-        for side, e in (('kernel', c.schur_errors(got, want64)),
-                        ('plain', c.schur_errors(want32, want64))):
+        for side, e in (('kernel', ba_kernel.schur_errors(got, want64)),
+                        ('plain', ba_kernel.schur_errors(want32, want64))):
             for k, v in e.items():
                 row[side][k] = max(row[side].get(k, 0.0), v)
         return got

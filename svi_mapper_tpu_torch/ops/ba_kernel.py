@@ -230,6 +230,33 @@ def schur_assemble_tiled_plain(T_wc, points_w, obs_uv, obs_w, lam, *,
     return _finish_tiled(hl_part, H_pp, b_p, W, lam, point_damping)
 
 
+# How far a kernel's output may be from its plain version's: relative to the
+# largest entry of the plain version's output; rhs cancels, so it is held
+# against 100 x max|b_l|. The largest entries of Hll_inv are the unobserved
+# landmarks' 1 / damping, a thousand times an observed landmark's, so
+# Hll_inv is held per landmark as well, each 3x3 block against its own
+# largest entry: 5e-3, because the cofactors cancel (float32 alone is up to
+# 8e-4 from float64 on a weakly observed landmark); a wrong block is off by
+# its own size.
+SCHUR_NAMES = ("S", "rhs", "Hll_inv", "b_l", "W")
+SCHUR_TOL = MappingProxyType(dict(S=2e-4, rhs=5e-3, Hll_inv=2e-4, b_l=2e-4, W=2e-4,
+                                  Hll_inv_block=5e-3))
+
+
+def schur_errors(got, want) -> dict:
+    """Per output of :func:`schur_assemble`: max |got - want| over the scale
+    its entry of :data:`SCHUR_TOL` names."""
+    scale_rhs = float(torch.max(torch.abs(want[3]))) * 100
+    out = {}
+    for nm, a, b in zip(SCHUR_NAMES, got, want):
+        scale = scale_rhs if nm == "rhs" else max(float(torch.max(torch.abs(b))), 1e-9)
+        out[nm] = float(torch.max(torch.abs(a.double() - b.double()))) / scale
+    block_scale = want[2].double().abs().amax((1, 2)).clamp(min=1e-30)
+    out["Hll_inv_block"] = float(torch.max(
+        (got[2].double() - want[2].double()).abs().amax((1, 2)) / block_scale))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the tiling of the CUDA kernels
 # ---------------------------------------------------------------------------
@@ -443,10 +470,9 @@ def launch_schur_system(T, X, obs, ow, lam, cam_scalars, point_damping, *,
             tiling.ks, tiling.sc, tiling.g, *[float(v) for v in cam_scalars],
             damping, stream)
     cuda_build.check_launch(err, "svi_schur_system")
-    if tiled:
-        paths.count_launch(__name__, "schur_assemble_tiled")
-    else:
-        paths.count_launch(__name__, "schur_assemble")
+    work = lambda: (lambda c: (c["bytes"], c["flops"]))(paths.schur_work(ow, K, L))  # noqa: E731
+    paths.count_launch(__name__, "schur_assemble_tiled" if tiled else "schur_assemble",
+                       work=work)
     view = lambda name, *shape: buf.narrow(0, lay[name][0], lay[name][1]).view(shape)  # noqa: E731
     return (view("S", K, 6, K, 6), view("rhs", K, 6), view("Hll_inv", L, 3, 3),
             view("b_l", L, 3), W)

@@ -305,7 +305,7 @@ def brief_dense_fused(img: torch.Tensor) -> torch.Tensor:
             img.data_ptr(), out.data_ptr(), h, w,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, "svi_brief_dense_fused")
-    paths.count_launch(__name__, "brief_dense_fused")
+    paths.count_launch(__name__, "brief_dense_fused", work=lambda: paths.brief_dense_work(h, w))
     return out
 
 

@@ -118,7 +118,8 @@ def launch_hamming_matrix(lib, a, b, out=None) -> torch.Tensor:
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, M,
                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check_launch(err, "svi_hamming_matrix")
-        paths.count_launch(__name__, "hamming_matrix")
+        paths.count_launch(__name__, "hamming_matrix",
+                           work=lambda: paths.hamming_matrix_work(B, N, M))
     return out
 
 
@@ -195,7 +196,8 @@ def launch_pool_nn_counts(lib, q, vq, r, vr, cutoff: int, out=None) -> torch.Ten
                 out.data_ptr(), B, P, C, Pr, int(cutoff),
                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check_launch(err, "svi_pool_nn_counts")
-        paths.count_launch(__name__, "pool_nn_counts")
+        paths.count_launch(__name__, "pool_nn_counts",
+                           work=lambda: paths.pool_nn_counts_work(B, P, C, Pr))
     return out
 
 

@@ -68,6 +68,14 @@ def span_origin(uv_left: torch.Tensor, h: int, w: int, De: int):
     return u_r, v_r, x0
 
 
+def span_pixels(uv_left: torch.Tensor, h: int, w: int, De: int) -> int:
+    """The distinct field pixels the spans of all keypoints cover (the
+    data-dependent count of a call's work)."""
+    _, v_r, x0 = span_origin(uv_left, h, w, De)
+    cols = x0[:, None] + torch.arange(De, device=uv_left.device)[None, :]
+    return paths.unique_pixels(h, w, v_r[:, None].expand(-1, De), cols)
+
+
 def row_span_profiles(dense_right, v_r, x0, desc_left, De: int) -> torch.Tensor:
     """Plain PyTorch profile: ``[K, De]`` int32, ascending disparity."""
     dev = dense_right.device
@@ -165,7 +173,8 @@ def launch_stereo_profiles(lib, dense_right, uv, desc, De: int):
                 profile.data_ptr(), u_r.data_ptr(), x0.data_ptr(), K, De, h, w,
                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check_launch(err, "svi_stereo_profiles")
-        paths.count_launch(__name__, "stereo_profiles")
+        paths.count_launch(__name__, "stereo_profiles", work=lambda: paths.stereo_profiles_work(
+            K, De, span_pixels(uv, h, w, De)))
     return profile, u_r, x0
 
 
@@ -225,5 +234,6 @@ def launch_stereo_match(lib, dense_right, uv, desc, center, search_range, De: in
                 K, De, h, w, ctypes.c_float(min_disparity),
                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check_launch(err, "svi_stereo_match")
-        paths.count_launch(__name__, "stereo_match")
+        paths.count_launch(__name__, "stereo_match", work=lambda: paths.stereo_match_work(
+            K, De, span_pixels(uv, h, w, De)))
     return out

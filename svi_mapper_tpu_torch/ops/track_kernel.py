@@ -179,6 +179,20 @@ def listed_mask(lo, hi):
         ((col >= lo[..., 1:]) & (col <= hi[..., 1:]))
 
 
+def scored_pixels(h: int, w: int, uv_pred: torch.Tensor, band) -> tuple[int, int]:
+    """``(touched, scored)`` of one call: the distinct field pixels the
+    tiers can accept over all landmarks, and the window pixels scored (the
+    listing of :func:`tier_row_intervals`, summed over landmarks) — the
+    data-dependent counts of the call's work."""
+    u_r, v_r, x0, y0 = window_origin(uv_pred, h, w)
+    mask = listed_mask(*tier_row_intervals(u_r, v_r, x0, y0, band))
+    rows = torch.arange(WIN_H, device=uv_pred.device)
+    cols = torch.arange(WIN_W, device=uv_pred.device)
+    ys = (y0[:, None, None] + rows[None, :, None]).expand(-1, -1, WIN_W)
+    xs = (x0[:, None, None] + cols[None, None, :]).expand(-1, WIN_H, -1)
+    return paths.unique_pixels(h, w, ys[mask], xs[mask]), int(mask.sum())
+
+
 def window_scores(
     dense: torch.Tensor,          # [H, W, 8] int32 dense BRIEF field
     uv_pred: torch.Tensor,        # [L, 2] float predictions
@@ -309,5 +323,6 @@ def launch_track_scores(lib, dense_left, uv_pred, band, desc_last, desc_ref,
                 L, h, w, cutoff_s1, cutoff_s2, cutoff_ref,
                 torch.cuda.current_stream().cuda_stream)
         cuda_build.check_launch(err, "svi_track_scores")
-        paths.count_launch(__name__, "track_scores")
+        paths.count_launch(__name__, "track_scores", work=lambda: paths.track_scores_work(
+            L, *scored_pixels(h, w, uv_pred, band)))
     return tuple(out)

@@ -147,12 +147,21 @@ def bundle_adjust(
                                          # (ops.ba_kernel); None = by shape
                                          # on a CUDA device, off on the CPU
     device=None,
+    _landmark_sum=None,
 ) -> BAResult:
     """Windowed bundle adjustment. ``device=None`` means CUDA (raises
     without one); inputs are moved there. With ``use_schur_kernel=None`` on a
     CUDA device: K <= 32 goes through kernel K4, K % 32 == 0 and K <= 128
     through K5, anything else through the materialised route. A kernel that
-    fails to build or launch raises; nothing gives way to another route."""
+    fails to build or launch raises; nothing gives way to another route.
+
+    ``_landmark_sum`` is the hook of ``parallel.sharded_ba``: a function
+    that takes tensors summed over this call's landmarks and returns their
+    sums over every shard of the landmark axis (the reprojection chi^2, and
+    the undamped Schur system ``S``, ``H_pp`` and ``rhs`` of each LM
+    iteration). Damping, the odometry and gravity terms, gauge fixing and
+    the solve follow it, so they run once on the summed system. ``None``
+    (the default) leaves every sum as this call computed it."""
     dev = resolve_device(device)
     T_wc = _on(T_wc, dev)
     points_w = _on(points_w, dev)
@@ -214,7 +223,10 @@ def bundle_adjust(
 
     def total_chi2(T, X):
         r, _ = _residuals(T, X, obs_uv, fx, fy, cx, cy, bq)
-        return _chi2(r, robust_w(r)) + odo_chi2(T) + grav_chi2(T)
+        chi2_l = _chi2(r, robust_w(r))
+        if _landmark_sum is not None:
+            (chi2_l,) = _landmark_sum(chi2_l)
+        return chi2_l + odo_chi2(T) + grav_chi2(T)
 
     chi2_init = total_chi2(T_wc, points_w)
 
@@ -237,6 +249,8 @@ def bundle_adjust(
             S, rhs, H_ll_inv, b_l, Wpl = assemble(
                 T, X, obs_uv, maskf, lam, fx=fx, fy=fy, cx=cx, cy=cy, bq=bq,
                 kernel_px2=kernel_px2, point_damping=point_damping)
+            if _landmark_sum is not None:
+                S, rhs = _landmark_sum(S, rhs)
             S[kk, :, kk, :] += lam * eye6
         else:
             r, p_c = _residuals(T, X, obs_uv, fx, fy, cx, cy, bq)
@@ -259,8 +273,7 @@ def bundle_adjust(
             b_p = (Jpw.transpose(1, 2) @ rk)[..., 0]                 # [K,6]
             b_l = (Jlw.transpose(1, 2) @ rl)[..., 0]                 # [L,3]
 
-            # Levenberg damping
-            H_pp = H_pp + lam * eye6
+            # Levenberg damping (of H_pp: below, after the landmark sum)
             H_ll = H_ll + (lam + point_damping) * torch.eye(3, dtype=dtype, device=dev)
             H_ll_inv = _inv3x3(H_ll)                                 # [L,3,3]
 
@@ -270,8 +283,10 @@ def bundle_adjust(
             A = W_Hinv.permute(0, 2, 1, 3).reshape(K * 6, L * 3)
             B = H_pl.permute(0, 2, 1, 3).reshape(K * 6, L * 3)
             S = (-(A @ B.T)).reshape(K, 6, K, 6)
-            S[kk, :, kk, :] += H_pp
             rhs = b_p - (A @ b_l.reshape(L * 3)).reshape(K, 6)
+            if _landmark_sum is not None:
+                S, H_pp, rhs = _landmark_sum(S, H_pp, rhs)
+            S[kk, :, kk, :] += H_pp + lam * eye6
 
         if use_odo:
             # J_{k+1} = I, J_k = -Adj(D_k) (left-multiplicative updates)

@@ -47,3 +47,17 @@ def fetch_numpy(tensors) -> tuple:
         out.append(part.numpy())
         at += t.numel()
     return tuple(out)
+
+
+def add_device_arguments(ap) -> None:
+    """The command-line tools' device flags: ``--device`` (default cuda)
+    and ``--cpu``, the same as ``--device cpu``."""
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: cuda)")
+    ap.add_argument("--cpu", action="store_true", help="same as --device cpu")
+
+
+def device_argument(args) -> torch.device:
+    """The device the tools' flags name, resolved by :func:`resolve_device`
+    (``cuda`` without a CUDA device raises)."""
+    return resolve_device("cpu" if args.cpu else args.device)

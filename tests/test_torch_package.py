@@ -39,11 +39,26 @@ def test_module_layout_mirrors_the_jax_package():
         "io.stress", "eval.timing", "eval.stage_bench", "utils.faults", "utils.loggers",
         "native.build", "tools.make_dump", "tools.validate_dataset",
         "tools.republish_stream", "tools.create_cloud", "tools.match_clouds",
-        "tools.bench_matching",
+        "tools.bench_matching", "tools.run_kitti", "tools.acceptance", "run_demo",
+        "tools.evaluate_trajectory", "tools.align_trajectory",
+        "tools.interpolate_trajectory", "tools.triangulation_sampling",
+        "tools.compute_descriptors", "tools.create_vocabulary", "tools.view_map",
+        "tools.validate_kernels", "tools.bench_scaling", "eval.viewer",
+        "eval.utilization", "parallel", "parallel.mesh", "parallel.distributed",
+        "parallel.sharded_ba",
     }
     have = {m.removeprefix("svi_mapper_tpu_torch.") for m in MODULES}
     assert expected <= have
-    for name in expected - {"convert"}:
+    # every module of the JAX package has its twin (the kernel validator
+    # under the name of what it validates here)
+    renamed = {"tools.validate_tpu_kernels": "tools.validate_kernels"}
+    jax_modules = {
+        ".".join(p.relative_to(REPO / "svi_mapper_tpu").with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in (REPO / "svi_mapper_tpu").rglob("*.py")} - {"__init__"}
+    missing = {renamed.get(m, m) for m in jax_modules} - have
+    assert not missing, sorted(missing)
+    for name in expected - {"convert", "tools.validate_kernels", "parallel"}:
         assert (REPO / "svi_mapper_tpu" / (name.replace(".", "/") + ".py")).exists(), name
     assert "native" in have                        # the package, as in the JAX one
     native_src = sorted(p.name for p in (REPO / "svi_mapper_tpu_torch" / "native" / "src").iterdir())
@@ -206,6 +221,44 @@ def test_map_optimisation_entry_points_raise_without_device(rng):
     # and with device="cpu" they do run
     res = ba.bundle_adjust(T, X, obs, mask, cam, fix, max_iterations=1, device="cpu")
     assert res.T_wc.device.type == "cpu"
+
+
+def test_tools_and_parallel_entry_points_raise_without_device(tmp_path, capsys):
+    """The command-line tools take ``--device`` (default cuda, ``--cpu``
+    the same as ``--device cpu``): with no CUDA device and no ``--cpu``
+    each raises through ``resolve_device`` before it reads a file; the
+    kernel validator validates nothing and exits non-zero. So do the
+    utilization report and the multi-process layer's ``device=None``."""
+    _no_cuda()
+    import importlib
+
+    from svi_mapper_tpu_torch.eval import utilization
+    from svi_mapper_tpu_torch.parallel import distributed, mesh
+
+    for module, argv in (("tools.run_kitti", [str(tmp_path)]),
+                         ("tools.acceptance", [str(tmp_path)]),
+                         ("run_demo", []),
+                         ("tools.triangulation_sampling", []),
+                         ("tools.compute_descriptors", [str(tmp_path)]),
+                         ("tools.create_vocabulary", [str(tmp_path / "d.npz")]),
+                         ("tools.bench_scaling", [])):
+        main = importlib.import_module(f"svi_mapper_tpu_torch.{module}").main
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv + ["--device", "cuda"])
+    from svi_mapper_tpu_torch.tools import validate_kernels
+
+    assert validate_kernels.main([]) == 1
+    capsys.readouterr()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        utilization.utilization_report(160, 96)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        utilization.analyze_stage(torch.matmul, (torch.ones(2, 2), torch.ones(2, 2)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.initialize("127.0.0.1:1", 1, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_map_mesh(1)
 
 
 def test_device_mismatch_rejected():
