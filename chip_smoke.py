@@ -107,6 +107,15 @@ one CUDA card, ``nvcc`` and nothing from the network. It
    1241 x 376, every share in (0, 1.05] (``utilization``). Each phase
    requires the kernels of its path to have launched.
 
+After the whole system's loop (5), ``sharded_frame`` drives the
+landmark-sharded frame step (``parallel.mesh.shard_state``): one NCCL rank
+in this process over main_path's 24 frames, which must give main_path's
+bits; then two gloo ranks spawned on the one card (gloo's CUDA support
+probed first), 512 table rows each, over the same frames (integer outputs
+and table fields equal to main_path's, poses within 1e-4) and over the
+whole system's loop (``slam_loop``'s gates on each rank, the two ranks'
+trajectories the same bits, K4 and K6 launched on each).
+
 Every phase prints one line of JSON. Any failure raises, so the exit code
 is non-zero and the final line is not printed. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -138,6 +147,8 @@ PEAK_INT8_OPS_PER_S = 1979e12
 H, W_RAW = 376, 1241
 N_LANDMARKS = 1024
 MAX_DISPARITY = 128
+# main_path's frames: this many through process(), then process_many(chunk)
+SHARD_SINGLE, SHARD_CHUNKED, SHARD_CHUNK = 16, 8, 8
 
 
 def require(cond, msg: str) -> None:
@@ -896,7 +907,13 @@ def check_against_cpu(device) -> dict:
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
-def run_main_path(device, profile: bool = False) -> tuple[dict, dict]:
+def run_main_path(device, profile: bool = False,
+                  keep: dict | None = None) -> tuple[dict, dict]:
+    """The front-end at configuration (a): SHARD_SINGLE frames through
+    ``StereoTracker.process``, SHARD_CHUNKED through ``process_many``. With
+    ``keep`` (a dict), fills it with what ``run_sharded_frame`` holds the
+    sharded runs against: the host outputs, the table after the last
+    frame, the frames, the camera, the launches and the frames/s."""
     import numpy as np
     import torch
 
@@ -904,7 +921,7 @@ def run_main_path(device, profile: bool = False) -> tuple[dict, dict]:
     from svi_mapper_tpu_torch.io import synthetic
     from svi_mapper_tpu_torch.models.tracker import StereoTracker
 
-    n_single, n_chunked, chunk, warm_from = 16, 8, 8, 4
+    n_single, n_chunked, chunk, warm_from = SHARD_SINGLE, SHARD_CHUNKED, SHARD_CHUNK, 4
     n = n_single + n_chunked
     cam = load_stereo_camera("kitti_00_camera_left.txt",
                              "kitti_00_camera_right.txt", device=device)
@@ -956,6 +973,9 @@ def run_main_path(device, profile: bool = False) -> tuple[dict, dict]:
                st.frame_idx, st.instability]
     tensors += [getattr(st.table, f.name) for f in dataclasses.fields(st.table)]
     require(all(t.is_cuda for t in tensors), "state left the card")
+    if keep is not None:
+        keep.update(outs=outs, table=table_numpy(st.table), imgs=(imgs_l, imgs_r), cam=cam,
+                    counts=counts, frames_per_s=n / (sum(frame_s) + chunked_s))
 
     # host synchronisations per frame: four more frames with PyTorch's sync
     # debug mode on, which warns at every call that waits for the card
@@ -3995,6 +4015,478 @@ def run_sharded_ba(device) -> tuple[dict, dict]:
     return report, counts
 
 
+# ---------------------------------------------------------------------------
+# the landmark-sharded frame step
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 2
+# a rank whose collective waits this long raises (the process group's timeout)
+SHARD_COLLECTIVE_TIMEOUT_S = 120
+SHARD_POSE_TOL = 1e-4
+INT_OUTPUT_FIELDS = ("posit_ok", "n_tracked", "n_active", "n_optimal", "n_new",
+                     "is_keyframe", "inliers", "instability")
+
+
+def table_numpy(table) -> dict:
+    """Every field of a table as numpy, with every row (gathered over the
+    mesh of a sharded table)."""
+    from svi_mapper_tpu_torch.parallel.mesh import LandmarkShards
+
+    names = [f.name for f in dataclasses.fields(table)]
+    shards = LandmarkShards.of(table.active)
+    fields = [getattr(table, k) for k in names]
+    if shards is not None:
+        fields = shards.gather(*[shards.local(t) for t in fields])
+    return {k: t.cpu().numpy() for k, t in zip(names, fields)}
+
+
+def int_table_fields(table: dict) -> list[str]:
+    import numpy as np
+
+    return [k for k, v in table.items() if not np.issubdtype(v.dtype, np.floating)]
+
+
+class RowsRecorder:
+    """While in use, notes the rows (landmarks or keypoints) of every call
+    of K1's and K2's match entries, as the frame step calls them."""
+
+    def __enter__(self):
+        from svi_mapper_tpu_torch.frontend import stereo, tracking
+
+        self.rows = {"track_scores": set(), "stereo_match": set()}
+        self._k1 = CallCounter(tracking, "track_scores",
+                               lambda field, uv, *a: self.rows["track_scores"].add(uv.shape[0]))
+        self._k2 = CallCounter(stereo, "stereo_match",
+                               lambda field, uv, desc: self.rows["stereo_match"].add(uv.shape[0]))
+        self._k1.__enter__()
+        self._k2.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._k2.__exit__(*exc)
+        self._k1.__exit__(*exc)
+
+    def report(self) -> dict:
+        return {k: sorted(v) for k, v in self.rows.items()}
+
+
+def drive_main_path_frames(tracker, imgs_l, imgs_r) -> list:
+    """main_path's frames: SHARD_SINGLE through ``process``, the rest
+    through ``process_many(chunk=SHARD_CHUNK)``; the host outputs."""
+    outs = [tracker.process(imgs_l[i], imgs_r[i]) for i in range(SHARD_SINGLE)]
+    return outs + tracker.process_many(imgs_l[SHARD_SINGLE:], imgs_r[SHARD_SINGLE:],
+                                       chunk=SHARD_CHUNK)
+
+
+def outputs_numpy(outs) -> dict:
+    import numpy as np
+
+    return {f.name: np.stack([np.asarray(getattr(o, f.name)) for o in outs])
+            for f in dataclasses.fields(outs[0])}
+
+
+def first_difference(got: dict, want: dict, fields) -> dict | None:
+    """The first frame (and the fields) at which two runs' outputs part."""
+    import numpy as np
+
+    for i in range(len(want[fields[0]])):
+        bad = [f for f in fields if not np.array_equal(got[f][i], want[f][i])]
+        if bad:
+            return {"frame": i, "fields": bad}
+    return None
+
+
+def probe_gloo_cuda(device) -> dict:
+    """What gloo's process group accepts on CUDA tensors, rank against
+    rank: ``all_reduce`` with SUM / MIN / MAX on each dtype the sharded step
+    reduces (the result checked), then ``broadcast``, ``all_gather``,
+    ``scatter`` and ``reduce_scatter`` on float32 (DTensor's placement and
+    gather use them). The second part runs in a group of its own with a
+    20 s timeout, so an asymmetric refusal cannot hold the main group."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    out = {"all_reduce": {}}
+    ops = {"SUM": dist.ReduceOp.SUM, "MIN": dist.ReduceOp.MIN, "MAX": dist.ReduceOp.MAX}
+    expect = {"SUM": n * (n + 1) / 2, "MIN": 1, "MAX": n}
+    for dtype in (torch.uint8, torch.int32, torch.int64, torch.float32, torch.float64,
+                  torch.bool):
+        for name, op in ops.items():
+            key = f"{name}/{str(dtype).removeprefix('torch.')}"
+            x = torch.full((5,), rank + 1, device=device).to(dtype)
+            try:
+                dist.all_reduce(x, op=op)
+                want = torch.full((5,), expect[name], device=device).to(dtype)
+                out["all_reduce"][key] = "ok" if torch.equal(x, want) else f"wrong: {x.tolist()}"
+            except Exception as e:  # noqa: BLE001  (the probe records the refusal)
+                out["all_reduce"][key] = f"{type(e).__name__}: {str(e)[:160]}"
+    probe = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=20))
+    tries = {
+        "broadcast": lambda x: dist.broadcast(x, src=0, group=probe),
+        "all_gather": lambda x: dist.all_gather([torch.empty_like(x) for _ in range(n)], x,
+                                                group=probe),
+        "scatter": lambda x: dist.scatter(
+            x, [torch.ones_like(x) for _ in range(n)] if rank == 0 else None, src=0,
+            group=probe),
+        "reduce_scatter": lambda x: dist.reduce_scatter(
+            x, [torch.ones_like(x) for _ in range(n)], group=probe),
+    }
+    for name, call in tries.items():
+        try:
+            call(torch.full((4,), float(rank), device=device))
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001
+            out[name] = f"{type(e).__name__}: {str(e)[:160]}"
+    return out
+
+
+def sharded_frames_on_rank(device) -> dict:
+    """Part 2 on one rank: main_path's 24 frames at configuration (a) on
+    the state sharded over the world (512 rows a rank)."""
+    import torch
+
+    from svi_mapper_tpu_torch.config import DEFAULT_PARAMS, load_stereo_camera
+    from svi_mapper_tpu_torch.io import synthetic
+    from svi_mapper_tpu_torch.models.tracker import StereoTracker
+    from svi_mapper_tpu_torch.parallel.mesh import make_map_mesh, shard_state
+
+    cam = load_stereo_camera("kitti_00_camera_left.txt", "kitti_00_camera_right.txt",
+                             device=device)
+    poses = synthetic.corridor_trajectory(SHARD_SINGLE + SHARD_CHUNKED, step=0.5)
+    rendered = [synthetic.render_stereo(cam, T) for T in poses]
+    imgs_l = torch.stack([l for l, _ in rendered])
+    imgs_r = torch.stack([r for _, r in rendered])
+    tracker = StereoTracker(cam, DEFAULT_PARAMS, device=device)
+    tracker.state = shard_state(tracker.state, make_map_mesh(device=device))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with RowsRecorder() as rows:
+        outs = drive_main_path_frames(tracker, imgs_l, imgs_r)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"outputs": outputs_numpy(outs), "table": table_numpy(tracker.state.table),
+            "local_rows": int(tracker.state.table.active.to_local().shape[0]),
+            "placements": str(tracker.state.table.pos_w.placements),
+            "launches": launch_counts(), "rows": rows.report(), "seconds": seconds,
+            "frames_per_s": len(outs) / seconds}
+
+
+def sharded_loop_on_rank(device, option: dict) -> dict:
+    """Parts 3 and 4 on one rank: ``SLAMSystem(**option).process_many(
+    chunk=32)`` + ``finalize_backend`` over loop (d) on the sharded state."""
+    import torch
+
+    from svi_mapper_tpu_torch.eval import trajectory as ev
+    from svi_mapper_tpu_torch.models.slam import SLAMSystem
+    from svi_mapper_tpu_torch.parallel.mesh import make_map_mesh, shard_state
+
+    params = loop_params()
+    seq, imgs_l, imgs_r, _ = render_loop(device)
+    slam = SLAMSystem(seq.cam, params, device=device, **option)
+    slam.state = shard_state(slam.state, make_map_mesh(device=device))
+    windows = []
+    record_ba_windows(slam, windows)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording_schur_shapes() as shapes:
+        outs = slam.process_many(imgs_l, imgs_r, chunk=LOOP_CHUNK)
+        slam.finalize_backend()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    raw, opt = slam.trajectory_array, slam.optimized_trajectory()
+    crossings, at_wall = wall_crossings(seq.poses_wc, 1)
+    worker = slam._bk_pool is not None
+    left = (len(slam._bk_futures) + len(slam._bk_ready) + slam._bk_folds.qsize()
+            if worker else None)
+    slam.close()
+    return {"frames": len(outs), "seconds": seconds, "frames_per_s": len(outs) / seconds,
+            "worker": worker, "folds_or_futures_left": left,
+            "launches_on_worker": worker_launches("backend"),
+            "keyframes": len(slam.slam_keyframes),
+            "stats": {k: int(v) for k, v in slam.stats.items()},
+            "accepted_closures": [[c.ref_kf, c.query_kf] for c in slam.accepted_closures],
+            "closure_transform_err_m": closure_errors(slam, seq.poses_wc),
+            "ate_recorded_m": ev.ate_rmse(raw, seq.poses_wc),
+            "ate_optimised_m": ev.ate_rmse(opt, seq.poses_wc),
+            "posit_rejected_at_frames": [i for i, o in enumerate(outs[1:], 1)
+                                         if not bool(o.posit_ok)],
+            "wall_crossings_at_frames": crossings, "near_wall": sorted(at_wall),
+            "raw": raw, "optimised": opt,
+            "placements": str(slam.state.table.pos_w.placements),
+            "ba_windows": windows_by_shape(windows, counts),
+            "schur_shapes": sorted(shapes), "launches": counts}
+
+
+def _sharded_rank(rank: int, n: int, address: str, results) -> None:
+    """One gloo rank on the card: the probe, part 2, part 3; its report
+    (or its traceback) goes into ``results``."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    try:
+        from svi_mapper_tpu_torch.ops import cuda_build
+
+        cuda_build.load_library()
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{address}", world_size=n, rank=rank,
+            timeout=datetime.timedelta(seconds=SHARD_COLLECTIVE_TIMEOUT_S))
+        try:
+            report = {"rank": rank, "backend": dist.get_backend(),
+                      "gloo_cuda": probe_gloo_cuda(device)}
+            report["frames"] = sharded_frames_on_rank(device)
+            torch.cuda.empty_cache()
+            report["loop"] = sharded_loop_on_rank(device, {})
+            torch.cuda.empty_cache()
+            report["overlap"] = sharded_loop_on_rank(device, {"overlap_backend": "force"})
+        finally:
+            dist.destroy_process_group()
+        results.put(report)
+    except BaseException:
+        results.put({"rank": rank, "error": traceback.format_exc()[-4000:]})
+        raise
+
+
+def run_sharded_world(n: int, timeout: float) -> list[dict]:
+    """Spawn ``n`` gloo ranks on the one card, as ``tools/bench_scaling``
+    spawns its ranks; their reports in rank order. Raises if a rank fails
+    or the world outlasts ``timeout``; no rank is left running."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with __import__("socket").socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{sk.getsockname()[1]}"
+    procs = [ctx.Process(target=_sharded_rank, args=(r, n, address, results), daemon=True)
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    reports = {}
+    try:
+        while len(reports) < n:
+            try:
+                rep = results.get(timeout=1.0)
+            except queue.Empty:
+                require(time.monotonic() < deadline and
+                        not any(p.exitcode not in (None, 0) for p in procs),
+                        f"sharded world of {n}: a rank failed or hung (exit codes "
+                        f"{[p.exitcode for p in procs]})")
+                continue
+            require("error" not in rep, f"rank {rep['rank']} failed:\n{rep.get('error')}")
+            reports[rep["rank"]] = rep
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        require(all(p.exitcode == 0 for p in procs),
+                f"exit codes {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    return [reports[r] for r in range(n)]
+
+
+def run_sharded_frame(device, main_keep: dict, loop: dict, smi: str,
+                      loop_system=None) -> tuple[dict, dict]:
+    """The landmark-sharded frame step (``parallel.mesh.shard_state``) on
+    the card, in three parts. 1: one NCCL rank in this process runs
+    main_path's 24 frames at configuration (a) on the sharded state and
+    must give main_path's bits on every frame and in every table field.
+    2: two gloo ranks on the one card (spawned) run the same frames with
+    512 rows each: every frame's integer outputs and the gathered table's
+    integer fields equal main_path's, poses within SHARD_POSE_TOL. 3: the
+    same ranks run ``SLAMSystem.process_many(chunk=32)`` +
+    ``finalize_backend`` over loop (d) and are held to ``slam_loop``'s
+    gates; the two ranks' trajectories must be the same bits, and K4 and K6
+    must launch on each. 4: the same loop with the back-end worker
+    (``overlap_backend="force"``, ``__graft_entry__.dryrun_multichip``'s
+    last part) on the two ranks, held to ``overlap_backend``'s gates, the
+    ranks the same bits (they fold only what both have). Returns the report
+    and each part's launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
+    from svi_mapper_tpu_torch.models.tracker import StereoTracker
+    from svi_mapper_tpu_torch.parallel import distributed
+    from svi_mapper_tpu_torch.parallel.mesh import make_map_mesh, shard_state
+
+    t_phase = time.perf_counter()
+    want_out, want_table = outputs_numpy(main_keep["outs"]), main_keep["table"]
+    imgs_l, imgs_r = main_keep["imgs"]
+    report = {"phase": "sharded_frame", "nvidia_smi": smi}
+
+    # 1. one NCCL rank
+    with __import__("socket").socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{sk.getsockname()[1]}"
+    distributed.initialize(address, 1, 0, device=device)
+    try:
+        tracker = StereoTracker(main_keep["cam"], DEFAULT_PARAMS, device=device)
+        tracker.state = shard_state(tracker.state, make_map_mesh(device=device))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = drive_main_path_frames(tracker, imgs_l, imgs_r)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        one_counts = launch_counts()
+        got_out, got_table = outputs_numpy(outs), table_numpy(tracker.state.table)
+        one = {"backend": dist.get_backend(), "seconds": seconds,
+               "frames_per_s": len(outs) / seconds,
+               "main_path_frames_per_s": main_keep["frames_per_s"],
+               "placements": str(tracker.state.table.pos_w.placements),
+               "first_output_difference": first_difference(
+                   got_out, want_out, list(want_out)),
+               "table_fields_differing": [k for k in want_table
+                                          if not np.array_equal(got_table[k], want_table[k],
+                                                                equal_nan=True)],
+               "launches": one_counts, "main_path_launches": main_keep["counts"]}
+    finally:
+        dist.destroy_process_group()
+    report["one_nccl_rank"] = one
+
+    # 2 and 3. two gloo ranks on the one card
+    t0 = time.perf_counter()
+    ranks = run_sharded_world(SHARD_RANKS, timeout=600.0)
+    report["gloo_world_seconds"] = time.perf_counter() - t0
+    report["gloo_cuda_probe"] = ranks[0]["gloo_cuda"]
+    frames = [r["frames"] for r in ranks]
+    tol_fields = [f for f in INT_OUTPUT_FIELDS if f in want_out]
+    two = {"local_rows": [f["local_rows"] for f in frames],
+           "placements": frames[0]["placements"],
+           "seconds": [f["seconds"] for f in frames],
+           "frames_per_s": [f["frames_per_s"] for f in frames],
+           "rows_k1_k2_ran_on": [f["rows"] for f in frames],
+           "main_path_rows": N_LANDMARKS,
+           "launches": [f["launches"] for f in frames],
+           "first_integer_output_difference": [
+               first_difference(f["outputs"], want_out, tol_fields) for f in frames],
+           "integer_table_fields_differing": [
+               [k for k in int_table_fields(want_table)
+                if not np.array_equal(f["table"][k], want_table[k])] for f in frames],
+           "pose_max_abs_diff": [float(np.abs(f["outputs"]["T_wc"] - want_out["T_wc"]).max())
+                                 for f in frames],
+           "ranks_same_bits": all(
+               np.array_equal(frames[0]["outputs"][k], frames[1]["outputs"][k])
+               for k in want_out) and all(
+               np.array_equal(frames[0]["table"][k], frames[1]["table"][k], equal_nan=True)
+               for k in want_table)}
+    report["two_gloo_ranks_frames"] = two
+    loops = [r["loop"] for r in ranks]
+    three = {k: [lp[k] for lp in loops] for k in (
+        "frames", "seconds", "frames_per_s", "keyframes", "stats", "accepted_closures",
+        "closure_transform_err_m", "ate_recorded_m", "ate_optimised_m",
+        "posit_rejected_at_frames", "ba_windows", "launches")}
+    three["placements"] = loops[0]["placements"]
+    three["wall_crossings_at_frames"] = loops[0]["wall_crossings_at_frames"]
+    three["ranks_same_trajectory_bits"] = (
+        np.array_equal(loops[0]["raw"], loops[1]["raw"])
+        and np.array_equal(loops[0]["optimised"], loops[1]["optimised"]))
+    three["slam_loop"] = {k: loop[k] for k in ("keyframes", "frames_per_s", "ate_recorded_m",
+                                               "ate_optimised_m", "accepted_closures")}
+    if loop_system is not None:
+        # reported, not required: float32 sum order may part them
+        three["same_trajectory_bits_as_slam_loop"] = (
+            np.array_equal(loops[0]["raw"], loop_system.trajectory_array)
+            and np.array_equal(loops[0]["optimised"], loop_system.optimized_trajectory()))
+    report["two_gloo_ranks_loop"] = three
+    overlaps = [r["overlap"] for r in ranks]
+    four = {k: [lp[k] for lp in overlaps] for k in (
+        "worker", "folds_or_futures_left", "frames", "seconds", "frames_per_s", "keyframes",
+        "stats", "accepted_closures", "closure_transform_err_m", "ate_recorded_m",
+        "ate_optimised_m", "posit_rejected_at_frames", "launches", "launches_on_worker")}
+    four["ranks_same_trajectory_bits"] = (
+        np.array_equal(overlaps[0]["raw"], overlaps[1]["raw"])
+        and np.array_equal(overlaps[0]["optimised"], overlaps[1]["optimised"]))
+    four["ate_bound_m"] = min(max(1.25 * loop["ate_optimised_m"], 0.25), LOOP_ATE_BOUND_M) \
+        if loop.get("ate_optimised_m") is not None else LOOP_ATE_BOUND_M
+    report["two_gloo_ranks_overlap_backend"] = four
+    report["schur_shapes"] = sorted({tuple(s) for lp in loops + overlaps
+                                     for s in lp["schur_shapes"]})
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+
+    # part 1's gates
+    require(one["first_output_difference"] is None and not one["table_fields_differing"],
+            f"one NCCL rank differs from main_path: {one['first_output_difference']}, "
+            f"table fields {one['table_fields_differing']}")
+    require(all(one_counts[k] == main_keep["counts"][k] > 0 for k in FRONTEND_KERNELS),
+            f"one NCCL rank launched {one_counts}, main_path {main_keep['counts']}")
+    # part 2's
+    require(two["local_rows"] == [N_LANDMARKS // SHARD_RANKS] * SHARD_RANKS,
+            f"rows per rank {two['local_rows']}")
+    require(all(d is None for d in two["first_integer_output_difference"]),
+            f"an integer output parted from main_path's: {two['first_integer_output_difference']}")
+    require(not any(two["integer_table_fields_differing"]),
+            f"integer table fields differ: {two['integer_table_fields_differing']}")
+    require(max(two["pose_max_abs_diff"]) <= SHARD_POSE_TOL,
+            f"poses {two['pose_max_abs_diff']} from main_path's")
+    require(two["ranks_same_bits"], "the two ranks' frame outputs or tables differ")
+    for f in frames:
+        launched(f["launches"], FRONTEND_KERNELS, "sharded frames, one rank")
+        require(N_LANDMARKS // SHARD_RANKS in f["rows"]["track_scores"]
+                and N_LANDMARKS // SHARD_RANKS in f["rows"]["stereo_match"],
+                f"K1 / K2 did not run on the rank's rows: {f['rows']}")
+    # part 3's: slam_loop's gates on each rank
+    for lp in loops:
+        st = lp["stats"]
+        bad = [i for i in lp["posit_rejected_at_frames"] if i not in lp["near_wall"]]
+        require(lp["frames"] == LOOP_FRAMES and not bad,
+                f"sharded loop: pose solve rejected on frames {bad}")
+        require(st["closures_accepted"] >= 1 and st["pose_graph_runs"] >= 1
+                and st["ba_runs"] >= 1, f"sharded loop not closed: {st}")
+        require(np.isfinite(lp["optimised"]).all()
+                and lp["ate_optimised_m"] <= lp["ate_recorded_m"]
+                and lp["ate_optimised_m"] < LOOP_ATE_BOUND_M,
+                f"sharded loop ATE: recorded {lp['ate_recorded_m']} m, "
+                f"optimised {lp['ate_optimised_m']} m")
+        require(lp["closure_transform_err_m"]
+                and max(lp["closure_transform_err_m"]) < LOOP_CLOSURE_ERR_M,
+                f"sharded loop closures off by {lp['closure_transform_err_m']} m")
+        launched(lp["launches"], FRONTEND_KERNELS + ("schur_assemble", CLOSURE_KERNEL),
+                 "sharded loop, one rank")
+    require(three["ranks_same_trajectory_bits"], "the two ranks' trajectories differ")
+    # part 4's: overlap_backend's gates on each rank
+    for lp in overlaps:
+        st = lp["stats"]
+        bad = [i for i in lp["posit_rejected_at_frames"] if i not in lp["near_wall"]]
+        require(lp["worker"] and lp["folds_or_futures_left"] == 0,
+                f"sharded overlap: worker {lp['worker']}, {lp['folds_or_futures_left']} left")
+        require(lp["frames"] == LOOP_FRAMES and not bad,
+                f"sharded overlap: pose solve rejected on frames {bad}")
+        require(st["closures_accepted"] >= 1 and st["pose_graph_runs"] >= 1
+                and st["ba_runs"] >= 1, f"sharded overlap: {st}")
+        require(np.isfinite(lp["optimised"]).all()
+                and lp["ate_optimised_m"] < four["ate_bound_m"],
+                f"sharded overlap ATE {lp['ate_optimised_m']} m, bound {four['ate_bound_m']}")
+        require(max(lp["closure_transform_err_m"]) < LOOP_CLOSURE_ERR_M,
+                f"sharded overlap closures off by {lp['closure_transform_err_m']} m")
+        launched(lp["launches_on_worker"], ("schur_assemble", CLOSURE_KERNEL),
+                 "sharded overlap, the worker of one rank")
+    require(four["ranks_same_trajectory_bits"],
+            "the two ranks' trajectories differ with the back-end worker")
+    counts = {"nccl_1": one_counts, "gloo_frames": two["launches"],
+              "gloo_loop": three["launches"], "gloo_overlap": four["launches"]}
+    return report, counts
+
+
 def run_utilization(device) -> tuple[dict, dict]:
     """``eval.utilization.utilization_report()`` at 1241 x 376: every stage's
     MFU and device-memory share in (0, 1.05] (above raises in the module)."""
@@ -4099,7 +4591,8 @@ def main() -> int:
     # 5. the main paths, each with the launch counts set to 0 just before it
     #    and read just after
     profile = "--profile" in sys.argv[1:]
-    report, counts = run_main_path(device, profile=profile)
+    main_keep = {}
+    report, counts = run_main_path(device, profile=profile, keep=main_keep)
     emit(report)
     report, backend_counts = run_map_optimisation(device, profile=profile)
     emit(report)
@@ -4111,6 +4604,12 @@ def main() -> int:
     svi_keep = {"path": Path(ckdir.name) / "svi_loop.npz"}
     # the loops save a checkpoint after frame 95 (left out of their times)
     loop, loop_counts = run_slam_loop(device, keep=loop_keep)     # emits its own line
+    # the landmark-sharded frame step: one NCCL rank, then two gloo ranks on
+    # the one card (main_path's frames, then the loop), each part with the
+    # counts set to 0 just before it and read just after
+    sharded, sharded_counts = run_sharded_frame(device, main_keep, loop, smi,
+                                                loop_system=loop_keep["system"])
+    del main_keep
     # 6. the stereo-inertial path: card against CPU, the real-data front at
     #    the VI sensor's size, the bench loop (each with its counts set to 0
     #    just before it and read just after)
@@ -4152,7 +4651,8 @@ def main() -> int:
     # the K4 / K5 window shapes these phases launch (the CLIs' systems build
     # their own windows; bench_scaling's spawned rank solves the sharded
     # phase's 16 x 8192 problem), each held against its plain version below
-    entry_shapes = {}
+    # (the sharded loop's ranks recorded theirs in their own processes)
+    entry_shapes = {"sharded_frame": {tuple(x) for x in sharded["schur_shapes"]}}
     with recording_schur_shapes() as shapes:
         cli, cli_counts = run_cli_entry_points(device, tree)
     entry_shapes["cli_entry_points"] = shapes
@@ -4241,6 +4741,14 @@ def main() -> int:
             "launches_native_dump": native_counts["dump"][k["name"]],
             "launches_cloud_tools": tools_counts[k["name"]],
             **{f"launches_{phase}": c[k["name"]] for phase, c in cli_counts.items()},
+            # per rank: one NCCL rank; two gloo ranks on main_path's frames
+            # and on the loop
+            "launches_sharded_frame": {
+                "one_nccl_rank": sharded_counts["nccl_1"][k["name"]],
+                "gloo_frames_per_rank": [c[k["name"]] for c in sharded_counts["gloo_frames"]],
+                "gloo_loop_per_rank": [c[k["name"]] for c in sharded_counts["gloo_loop"]],
+                "gloo_overlap_per_rank": [c[k["name"]]
+                                          for c in sharded_counts["gloo_overlap"]]},
             "on_path": k["name"] not in OFF_PATH_ENTRIES,
         }
         for extra in ("launch_only_ms", "rel_err_vs_plain", "K", "L", "flops",

@@ -15,6 +15,12 @@ matrix reduced by argmin. One-to-one assignment keeps, per detection, only
 the landmark with the smallest distance (ties: lowest landmark index).
 Recovery runs AFTER the pose solve, under the refined pose, and is skipped
 when no landmark needs it — here a Python ``if`` on one host-read flag.
+
+On a landmark-sharded table (``shards``) each rank recovers its own rows
+against the same detections: the skip flag is summed over the ranks before
+it is read (a rank that skipped would leave the others waiting in a
+collective), and the one-to-one assignment takes its per-detection minima
+over every rank's landmarks, by global row.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ def regional_recovery(
     detect_cell: int = 4,
     detect_quality: float = 0.01,
     use_desc_history: bool = True,
+    shards=None,
 ) -> RecoveryResult:
     """Recover un-tracked landmarks from freshly detected corners."""
     L = table.capacity
@@ -89,6 +96,8 @@ def regional_recovery(
     half = scale * SEARCH_BLOCK_PX                          # (hw, hh)
 
     n_need = torch.sum(need.to(torch.int32))
+    if shards is not None:
+        (n_need,) = shards.sum(n_need)
 
     # The reference only runs stage 2 for MISSED landmarks; on frames where
     # the window pass tracked everything the full-image corner pass is pure
@@ -105,14 +114,14 @@ def regional_recovery(
         cam, cutoff=cutoff, cutoff_stereo=cutoff_stereo,
         max_detections=max_detections, detect_cell=detect_cell,
         detect_quality=detect_quality, use_desc_history=use_desc_history,
-        n_need=n_need,
+        n_need=n_need, shards=shards,
     )
 
 
 def _recover(
     dense_left, dense_right, img_left, table, need, half, uv_pred, cam, *,
     cutoff, cutoff_stereo, max_detections, detect_cell, detect_quality,
-    use_desc_history, n_need,
+    use_desc_history, n_need, shards,
 ) -> RecoveryResult:
     L = table.capacity
     dt = table.pos_w.dtype
@@ -158,14 +167,20 @@ def _recover(
     det_best = torch.full((K,), _BIG, dtype=torch.int32, device=dev)
     det_best.scatter_reduce_(0, best, torch.where(accept, best_cost, big),
                              "amin", include_self=True)
+    if shards is not None:
+        det_best = shards.min(det_best)
     accept = accept & (det_best[best] == best_cost)
     # distance ties between two landmarks on one detection: keep the lowest
-    # landmark index (matches the sequential reference order)
-    rows = torch.arange(L, dtype=torch.int32, device=dev)
-    first_l = torch.full((K,), L, dtype=torch.int32, device=dev)
+    # landmark index (matches the sequential reference order); the index is
+    # the global row on a sharded table
+    L_all, row0 = (L, 0) if shards is None else (L * shards.world, shards.offset(L))
+    rows = torch.arange(row0, row0 + L, dtype=torch.int32, device=dev)
+    first_l = torch.full((K,), L_all, dtype=torch.int32, device=dev)
     first_l.scatter_reduce_(0, best,
-                            torch.where(accept, rows, torch.full_like(rows, L)),
+                            torch.where(accept, rows, torch.full_like(rows, L_all)),
                             "amin", include_self=True)
+    if shards is not None:
+        first_l = shards.min(first_l)
     accept = accept & (first_l[best] == rows)
 
     uv_l = uv_det[best]                                     # [L, 2]

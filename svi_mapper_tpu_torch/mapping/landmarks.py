@@ -144,6 +144,7 @@ def insert_landmarks(
     uv4: torch.Tensor,            # [N, 4] first stereo measurement
     T_wc: torch.Tensor,           # [4, 4] current world->camera
     next_uid: torch.Tensor,       # scalar int32
+    shards=None,
 ) -> tuple[LandmarkTable, torch.Tensor]:
     """Write new landmarks into free slots (the batched ``new CLandmark``,
     ref CFundamentalMatcher::addNewLandmarks CFundamentalMatcher.cpp:83-193).
@@ -155,6 +156,11 @@ def insert_landmarks(
     whose unused writes collide harmlessly on a spare last entry), which
     gives the same table without data-dependent shapes or host reads.
     Returns the updated table and the new ``next_uid``.
+
+    On a landmark-sharded table (``shards``) every rank passes the same
+    candidates and its own rows; a slot's free rank counts the free slots
+    of the lower ranks first, so the k-th candidate lands in the same
+    global slot as on one device.
     """
     L = table.capacity
     N = new_valid.shape[0]
@@ -163,6 +169,9 @@ def insert_landmarks(
     free_rank = torch.cumsum(free.to(torch.int32), 0) - 1        # [L]
     cand_rank = torch.cumsum(new_valid.to(torch.int32), 0) - 1   # [N]
     n_free = torch.sum(free.to(torch.int32))
+    if shards is not None:
+        below, n_free = shards.exclusive_prefix(n_free)
+        free_rank = free_rank + below
     n_insert = torch.minimum(torch.sum(new_valid.to(torch.int32)), n_free)
 
     # rank -> candidate index; invalid candidates write the spare entry N

@@ -13,11 +13,27 @@ Everything runs eagerly on the state's device. Where the JAX package uses
 ``lax.cond`` this step reads one flag on the host and branches in Python:
 the rotation-only retry after a failed pose solve, and the recovery skip.
 Host code feeds images and reads the per-frame outputs.
+
+:func:`process_frame` and :func:`process_chunk` also take the state
+``parallel.mesh.shard_state`` places on a ``map`` mesh, as the JAX
+package's ``jit`` does. They unwrap its DTensors once, run every op on
+this rank's rows of the table with the images, poses and scalars
+replicated, and call the mesh's collectives (``parallel.mesh.LandmarkShards``)
+where the step crosses the landmark axis: the pose solve (its matches
+gathered, so every rank solves the whole table in the one-device order),
+the recovery's skip flag and one-to-one assignment, the landmark GN's end
+flag, the detection mask, the free-slot ranks of the insertion and the
+output counts. Every flag read on the host is then the same on every rank,
+and every sum of floats runs over the same rows in the same order as on
+one device, so any mesh size gives the one-device bits. The state comes
+back with its placements; the outputs are plain tensors, the same on every
+rank. A state on one device takes none of these calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import numpy as np
 import torch
@@ -168,6 +184,23 @@ def _to_image(img, dev: torch.device) -> torch.Tensor:
     return img.to(device=dev, dtype=torch.float32)
 
 
+def _shards_of_rows(x):
+    """The mesh collectives of a tensor of table rows: a
+    ``parallel.mesh.LandmarkShards`` if it is a DTensor (which raises if
+    its process group is gone), else None."""
+    if "torch.distributed.tensor" not in sys.modules:   # no DTensor exists
+        return None
+    from svi_mapper_tpu_torch.parallel.mesh import LandmarkShards
+
+    return LandmarkShards.of(x)
+
+
+def shards_of(state: FrameState):
+    """The collectives of a state ``parallel.mesh.shard_state`` placed,
+    None for a state on one device."""
+    return _shards_of_rows(state.table.active)
+
+
 def process_frame(
     state: FrameState,
     img_left,                   # [H, W] float32 (tensor or numpy)
@@ -184,7 +217,25 @@ def process_frame(
     device: torch.device | str | None = None,
 ) -> tuple[FrameState, FrameOutput]:
     """Process one stereo frame on ``device`` (``None`` means CUDA); the
-    state and the camera must already live there."""
+    state and the camera must already live there. A sharded state runs on
+    this rank's rows and returns with its placements (module docstring)."""
+    kw = dict(use_gt_pose=use_gt_pose, use_external_prior=use_external_prior,
+              do_landmark_opt=do_landmark_opt, device=device)
+    shards = shards_of(state)
+    if shards is None:
+        return _frame_step(state, img_left, img_right, cam, params, T_gt,
+                           T_fallback=T_fallback, shards=None, **kw)
+    loc = shards.local
+    new_state, out = _frame_step(
+        shards.local_state(state), loc(img_left), loc(img_right), cam, params,
+        loc(T_gt), T_fallback=loc(T_fallback), shards=shards, **kw)
+    return shards.wrap_state(new_state), out
+
+
+def _frame_step(state, img_left, img_right, cam, params, T_gt, *, use_gt_pose,
+                use_external_prior, do_landmark_opt, T_fallback, device, shards):
+    """The body of :func:`process_frame` on plain tensors: the whole table,
+    or this rank's rows of it with ``shards``."""
     dev = resolve_device(device)
     if state.device != dev or cam.device != dev:
         raise ValueError(
@@ -237,8 +288,13 @@ def process_frame(
         match collection reprojects with the prior, so a retry re-collects)."""
         tr = track_landmarks(dense_l, dense_r, state.table, T_p, cam, ms,
                              **track_kwargs)
+        p_w, uv4, tracked = state.table.pos_w, tr.uv4, tr.tracked
+        if shards is not None:
+            # every rank solves the whole table's matches: one gather of 8
+            # numbers a row, and the solve's sums run in the one-device order
+            p_w, uv4, tracked = shards.gather(p_w, uv4, tracked)
         rs = solve_stereo_posit(
-            T_p, state.table.pos_w, tr.uv4, tr.tracked, cam,
+            T_p, p_w, uv4, tracked, cam,
             T_prior=T_p,
             kernel_px2=params.posit_kernel_px2,
             min_points=params.posit_min_points,
@@ -292,6 +348,7 @@ def process_frame(
             max_detections=params.recovery_max_detections,
             detect_cell=params.recovery_cell,
             use_desc_history=params.use_desc_history,
+            shards=shards,
         )
         tracked_all = track.tracked | rec.recovered
         uv4_all = torch.where(track.tracked[:, None], track.uv4, rec.uv4)
@@ -321,6 +378,7 @@ def process_frame(
             max_iterations=params.landmark_max_iterations,
             convergence=params.landmark_convergence,
             idwa_fallback=params.landmark_idwa_fallback,
+            shards=shards,
         )
 
     # --- retirement ------------------------------------------------------
@@ -331,6 +389,8 @@ def process_frame(
         tuple(img_left.shape), table.uv_left_last, table.active & tracked_all,
         radius=params.detect_min_distance,
     )
+    if shards is not None:
+        allowed = shards.all(allowed)
     uv_new, _, valid_new = detect_corners(
         img_left,
         k=params.max_detections,
@@ -352,7 +412,7 @@ def process_frame(
     uv4_new = torch.cat([uv_new, sm.uv_right], dim=-1)
     table, next_uid = lm.insert_landmarks(
         table, sm.ok, pos_w_new, uv_new, sm.disparity,
-        desc_new, desc_new_r, uv4_new, T_new, state.next_uid,
+        desc_new, desc_new_r, uv4_new, T_new, state.next_uid, shards=shards,
     )
     n_new = next_uid - state.next_uid
 
@@ -362,6 +422,9 @@ def process_frame(
     dr2 = torch.sum(se3.log_so3(delta_kf[:3, :3]) ** 2)
     n_optimal = torch.sum(
         (table.active & table.is_optimal & tracked_all).to(torch.int32))
+    n_active = torch.sum(table.active.to(torch.int32))
+    if shards is not None:
+        n_tracked, n_optimal, n_active = shards.sum(n_tracked, n_optimal, n_active)
     is_keyframe = (
         (dt2 > params.keyframe_translation_m2) | (dr2 > params.keyframe_rotation_rad2)
     ) & (n_optimal >= params.keyframe_min_landmarks)
@@ -389,7 +452,7 @@ def process_frame(
         T_wc=T_new,
         posit_ok=posit_ok,
         n_tracked=n_tracked,
-        n_active=torch.sum(table.active.to(torch.int32)),
+        n_active=n_active,
         n_optimal=n_optimal,
         n_new=n_new,
         is_keyframe=is_keyframe,
@@ -428,28 +491,54 @@ def process_chunk(
     boundaries.
 
     With ``emit_snapshots=True`` a per-frame :class:`KeyframeSnapshot` is
-    stacked as well and returned third.
+    stacked as well and returned third. A sharded state is unwrapped once
+    and rewrapped once (module docstring); its snapshots come back split
+    over the mesh along their landmark axis (1), as :func:`snapshot_rows`
+    reads them.
     """
     dev = resolve_device(device)
+    shards = shards_of(state)
+    if shards is not None:
+        state = shards.local_state(state)
+        imgs_left, imgs_right, T_gt = (shards.local(x) for x in (imgs_left, imgs_right, T_gt))
     imgs_left = _to_image(imgs_left, dev)
     imgs_right = _to_image(imgs_right, dev)
     every = max(1, landmark_opt_every)
     idx0 = int(state.frame_idx)
     outs, snaps = [], []
     for i in range(imgs_left.shape[0]):
-        state, out = process_frame(
+        state, out = _frame_step(
             state, imgs_left[i], imgs_right[i], cam, params,
             None if T_gt is None else T_gt[i],
-            use_gt_pose=use_gt_pose,
+            use_gt_pose=use_gt_pose, use_external_prior=False,
             do_landmark_opt=((idx0 + i) % every) == 0,
-            device=dev,
+            T_fallback=None, device=dev, shards=shards,
         )
         outs.append(out)
         if emit_snapshots:
             snaps.append(snapshot_of(state.table))
+    if shards is not None:
+        state = shards.wrap_state(state)
     if emit_snapshots:
-        return state, _stack(outs), _stack(snaps)
+        snaps = _stack(snaps)
+        if shards is not None:
+            snaps = KeyframeSnapshot(**{
+                f.name: shards.wrap_rows(getattr(snaps, f.name), dim=1)
+                for f in dataclasses.fields(KeyframeSnapshot)})
+        return state, _stack(outs), snaps
     return state, _stack(outs)
+
+
+def snapshot_rows(snaps: KeyframeSnapshot, sel: torch.Tensor) -> KeyframeSnapshot:
+    """The frames ``sel`` of a stacked snapshot with every row of the
+    table: ``field[sel]``, gathered over the ranks where
+    :func:`process_chunk` split the stack over a mesh."""
+    names = [f.name for f in dataclasses.fields(KeyframeSnapshot)]
+    shards = _shards_of_rows(snaps.uid)
+    if shards is None:
+        return KeyframeSnapshot(**{n: getattr(snaps, n)[sel] for n in names})
+    full = shards.gather(*[shards.local(getattr(snaps, n))[sel] for n in names], dim=1)
+    return KeyframeSnapshot(**dict(zip(names, full)))
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,17 @@ fold. When a worker result lands depends on the threads' timing, so the
 two options are held to the synchronous run's closures and accuracy, not to
 its bits.
 
+``state`` may be one that ``parallel.mesh.shard_state`` placed on a ``map``
+mesh. The frame step then runs on each rank's rows; the back-end runs
+replicated on every rank, as the JAX package runs its back-end programs:
+it reads the table through one gathered copy, moves each rank's own rows
+for a gauge fold or a world shift, and writes a BA result into the rows a
+rank holds. With a worker, every rank's worker computes the same results
+from the same events, but when they land differs between the ranks: the
+ranks fold only what all of them have (a MIN over their counts of ready
+folds; an AND over their finished closure searches), so the replicated
+state stays the same on every rank.
+
 The ``timings`` of the keyframe tail are host clocks. ``kf_closure``,
 ``kf_ba`` and ``kf_pose_graph`` end in a read of their results and so
 include the device's work; ``kf_db_add`` ends in no read and is the time to
@@ -266,6 +277,9 @@ class SLAMSystem(StereoTracker):
                 max_workers=1, thread_name_prefix="backend")
             self._bk_folds: queue.Queue = queue.Queue()
             self._bk_futures: list = []
+            self._bk_ready: list = []            # drained, not yet folded
+                                                 # (a sharded state's ranks
+                                                 # fold a common prefix)
             self._fold_version = 0               # corrections folded (main)
             self._bk_Pc = [np.eye(4)]            # cumulative map corrections
             self._bk_Mc = [np.eye(4)]            # cumulative pose corrections
@@ -335,12 +349,13 @@ class SLAMSystem(StereoTracker):
             # are sparse
             kf_rows = np.nonzero(kf_mask)[0]
             sel = torch.from_numpy(kf_rows).to(self.device)
+            kf_snaps = frame_mod.snapshot_rows(snaps, sel)
             # everything EXCEPT the bit-probability plane crosses, in one
             # copy: at [L, 256] u8 the plane is most of the snapshot and its
             # only consumer, the closure DB, gathers from it on the device
             sn = dict(zip(_SNAPSHOT_HOST_FIELDS, fetch_numpy(
-                [getattr(snaps, f)[sel] for f in _SNAPSHOT_HOST_FIELDS])))
-            bitp_dev = snaps.bit_prob[sel]
+                [getattr(kf_snaps, f) for f in _SNAPSHOT_HOST_FIELDS])))
+            bitp_dev = kf_snaps.bit_prob
             if self._bk_pool is not None:
                 # overlapped back-end: queue raw snapshots (tagged with the
                 # current fold version) for the worker, which brings them
@@ -470,12 +485,13 @@ class SLAMSystem(StereoTracker):
 
     # ------------------------------------------------------------------
     def _on_keyframe(self, out) -> None:
-        t = self.state.table
+        st, _ = self._local_state()
+        t = st.table
+        rows = self._table_rows(t.uid, t.active, t.is_optimal, t.failed, t.uv_left_last,
+                                t.disparity_last, t.pos_w, t.desc_left_ref, t.bit_sum,
+                                t.meas_count)
         (T_wc, uid, active, optimal, failed, uv_left, disparity, pos_w, desc,
-         inst) = fetch_numpy(
-            (self.state.T_wc, t.uid, t.active, t.is_optimal, t.failed,
-             t.uv_left_last, t.disparity_last, t.pos_w, t.desc_left_ref,
-             self.state.instability))
+         inst) = fetch_numpy([st.T_wc] + rows[:8] + [st.instability])
         payload = dict(
             frame_idx=self.frame_count - 1,
             T_wc=T_wc,
@@ -490,7 +506,7 @@ class SLAMSystem(StereoTracker):
             instability=int(inst),
             # the [L, 256] bit-probability plane stays on the device (the DB
             # add gathers the pool rows there)
-            bit_prob=lm_mod.bit_prob_u8(t),
+            bit_prob=lm_mod.bit_prob_u8(t.replace(bit_sum=rows[8], meas_count=rows[9])),
             motion_scaling=self._kf_motion_scaling(self.frame_count - 1),
         )
         if self._bk_pool is not None:
@@ -502,7 +518,7 @@ class SLAMSystem(StereoTracker):
         # corrections the live pose changed; the keyframe's trajectory entry
         # must be the CORRECTED pose so each inter-keyframe segment is
         # internally consistent and anchors exactly at raw[kf.frame_idx]
-        self.trajectory[-1] = self.state.T_wc.cpu().numpy()
+        self.trajectory[-1] = self._local_state()[0].T_wc.cpu().numpy()
 
     # ------------------------------------------------------------------
     # overlapped back-end: event queue (tracker thread) + fold application
@@ -556,18 +572,35 @@ class SLAMSystem(StereoTracker):
             else:
                 still.append(f)
         self._bk_futures = still
+        shards = frame_mod.shards_of(self.state)
+        if shards is not None:
+            # every rank's worker emits the same folds; apply the prefix
+            # that has reached every rank
+            while True:
+                try:
+                    self._bk_ready.append(self._bk_folds.get_nowait())
+                except queue.Empty:
+                    break
+            (n,) = shards.min(torch.tensor([len(self._bk_ready)], device=self.device)).tolist()
+            for op in self._bk_ready[:n]:
+                self._apply_fold(op)
+            del self._bk_ready[:n]
+            return
         while True:
             try:
                 op = self._bk_folds.get_nowait()
             except queue.Empty:
                 break
-            kind = op[0]
-            if kind == "corr":
-                self._fold_corr(op[1], op[2])
-            elif kind == "lmk":
-                self._fold_landmarks(op[1], op[2], op[3])
-            elif kind == "canon":
-                self._apply_canon_to_live(op[1])
+            self._apply_fold(op)
+
+    def _apply_fold(self, op: tuple) -> None:
+        kind = op[0]
+        if kind == "corr":
+            self._fold_corr(op[1], op[2])
+        elif kind == "lmk":
+            self._fold_landmarks(op[1], op[2], op[3])
+        elif kind == "canon":
+            self._apply_canon_to_live(op[1])
 
     def _fold_corr(self, P: np.ndarray, M: np.ndarray) -> None:
         """Apply a rigid back-end correction to the live tracking state:
@@ -577,15 +610,16 @@ class SLAMSystem(StereoTracker):
         Pj = self._dev(P, torch.float32)
         Mj = self._dev(M, torch.float32)
         Pinv = self._dev(np.linalg.inv(P), torch.float32)
-        t = self.state.table
+        st, shards = self._local_state()
+        t = st.table
         pos_new = t.pos_w @ Pj[:3, :3].T + Pj[:3, 3]
         meas_T_new = torch.einsum("lmij,jk->lmik", t.meas_T_wc, Pinv)
-        self.state = self.state.replace(
-            T_wc=self.state.T_wc @ Mj,
-            T_wc_prev=self.state.T_wc_prev @ Mj,
-            T_last_keyframe=self.state.T_last_keyframe @ Mj,
+        self._set_local_state(st.replace(
+            T_wc=st.T_wc @ Mj,
+            T_wc_prev=st.T_wc_prev @ Mj,
+            T_last_keyframe=st.T_last_keyframe @ Mj,
             table=t.replace(pos_w=pos_new, meas_T_wc=meas_T_new),
-        )
+        ), shards)
         self._table_mirror = None                       # positions moved
         # rewrite the current trajectory segment (anchor keyframe included)
         # so raw relative poses within the segment stay pure VO and the
@@ -601,8 +635,8 @@ class SLAMSystem(StereoTracker):
         (slots may have been recycled since the worker's snapshot: only
         rows whose uid still matches are touched) and deactivate excised
         landmarks. Rows to skip are dropped on the host."""
-        t = self.state.table
-        live_uid = t.uid.cpu().numpy().astype(np.int64)
+        (live_uid,) = self._table_rows(self.state.table.uid)
+        live_uid = live_uid.cpu().numpy().astype(np.int64)
         cap = len(live_uid)
         order = np.argsort(live_uid, kind="stable")
 
@@ -616,11 +650,24 @@ class SLAMSystem(StereoTracker):
         slots_good = to_slots(np.asarray(uids, np.int64))
         slots_dead = to_slots(np.asarray(dead_uids, np.int64))
         keep = slots_good < cap
-        self.state = self.state.replace(table=_ba_writeback(
-            t, self._dev(slots_good[keep], torch.int64),
-            self._dev(np.asarray(X, np.float32)[keep], torch.float32),
-            self._dev(slots_dead[slots_dead < cap], torch.int64)))
+        self._write_back_rows(slots_good[keep], np.asarray(X, np.float32)[keep],
+                              slots_dead[slots_dead < cap])
         self._table_mirror = None                       # positions changed
+
+    def _write_back_rows(self, slots_good: np.ndarray, X: np.ndarray,
+                         slots_dead: np.ndarray) -> None:
+        """:func:`_ba_writeback` by table slot (global on a sharded state,
+        where each rank writes the slots it holds)."""
+        st, shards = self._local_state()
+        if shards is not None:
+            rows = st.table.capacity
+            lo = shards.offset(rows)
+            mine = (slots_good >= lo) & (slots_good < lo + rows)
+            slots_good, X = slots_good[mine] - lo, X[mine]
+            slots_dead = slots_dead[(slots_dead >= lo) & (slots_dead < lo + rows)] - lo
+        self._set_local_state(st.replace(table=_ba_writeback(
+            st.table, self._dev(slots_good, torch.int64),
+            self._dev(X, torch.float32), self._dev(slots_dead, torch.int64))), shards)
 
     def flush_backend(self) -> None:
         """Wait for the back-end worker to drain its queue, then fold all
@@ -640,7 +687,7 @@ class SLAMSystem(StereoTracker):
             return
         t = self.state.table
         uid_np, active, meas = fetch_numpy(
-            (t.uid, t.active, t.meas_count))
+            self._table_rows(t.uid, t.active, t.meas_count))
         canon = uid_np.copy()
         for u, c in lut.items():
             canon[uid_np == u] = c
@@ -656,8 +703,13 @@ class SLAMSystem(StereoTracker):
             else:
                 seen.add(u)
         self._table_mirror = None                       # uids changed
-        self.state = self.state.replace(table=t.replace(
-            uid=self._dev(canon, torch.int32), active=self._dev(active)))
+        st, shards = self._local_state()
+        if shards is not None:
+            rows = st.table.capacity
+            mine = slice(shards.offset(rows), shards.offset(rows) + rows)
+            canon, active = canon[mine], active[mine]
+        self._set_local_state(st.replace(table=st.table.replace(
+            uid=self._dev(canon, torch.int32), active=self._dev(active))), shards)
 
     def _handle_keyframe(
         self, *, frame_idx: int, T_wc: np.ndarray, uid: np.ndarray,
@@ -827,9 +879,17 @@ class SLAMSystem(StereoTracker):
             self.flush_backend()
         if self._closure_pool is None:
             return
+        shards = frame_mod.shards_of(self.state)
+        agreed = None
+        if shards is not None and self._pending_closures:
+            # the searches that finished on every rank
+            agreed = iter(shards.all(torch.tensor(
+                [block or fut.done() for _, fut in self._pending_closures],
+                device=self.device)).tolist())
         still = []
         for (idx, fut) in self._pending_closures:
-            if fut.done() or block:
+            now = (fut.done() or block) if agreed is None else next(agreed)
+            if now:
                 self._apply_found_closures(fut.result(), idx)
             else:
                 still.append((idx, fut))
@@ -1109,11 +1169,12 @@ class SLAMSystem(StereoTracker):
         CTrackerSV.cpp:454-456)."""
         A_np = np.linalg.inv(T_kf_old.astype(np.float64)) @ T_kf_new
         self._corr_M = self._corr_M @ A_np
+        st, shards = self._local_state()
         T, Tp, Tk = _poses_rmul(
-            self.state.T_wc, self.state.T_wc_prev,
-            self.state.T_last_keyframe, self._dev(A_np, torch.float32))
-        self.state = self.state.replace(
-            T_wc=T, T_wc_prev=Tp, T_last_keyframe=Tk)
+            st.T_wc, st.T_wc_prev, st.T_last_keyframe,
+            self._dev(A_np, torch.float32))
+        self._set_local_state(
+            st.replace(T_wc=T, T_wc_prev=Tp, T_last_keyframe=Tk), shards)
 
     @staticmethod
     def _world_correction(T_old: np.ndarray, T_new: np.ndarray) -> np.ndarray:
@@ -1130,18 +1191,19 @@ class SLAMSystem(StereoTracker):
         self._corr_P = G.astype(np.float64) @ self._corr_P
         self._corr_M = self._corr_M @ np.linalg.inv(G.astype(np.float64))
         Gj = self._dev(G, torch.float32)
-        t = self.state.table
+        st, shards = self._local_state()
+        t = st.table
         pos_new = t.pos_w @ Gj[:3, :3].T + Gj[:3, 3]
         # every world->camera transform X must satisfy p_c invariance:
         # X_new = X_old G^-1  (then X_new p_w_new == X_old p_w_old)
         Ginv = self._dev(np.linalg.inv(G), torch.float32)
         meas_T_new = torch.einsum("lmij,jk->lmik", t.meas_T_wc, Ginv)
-        self.state = self.state.replace(
-            T_wc=self.state.T_wc @ Ginv,
-            T_wc_prev=self.state.T_wc_prev @ Ginv,
-            T_last_keyframe=self.state.T_last_keyframe @ Ginv,
+        self._set_local_state(st.replace(
+            T_wc=st.T_wc @ Ginv,
+            T_wc_prev=st.T_wc_prev @ Ginv,
+            T_last_keyframe=st.T_last_keyframe @ Ginv,
             table=t.replace(pos_w=pos_new, meas_T_wc=meas_T_new),
-        )
+        ), shards)
         # the returned per-frame trajectory list keeps raw VO poses; the
         # OPTIMIZED trajectory is reconstructed via optimized_trajectory()
 
@@ -1219,7 +1281,7 @@ class SLAMSystem(StereoTracker):
         # boundary would only be the previous BA's own refinement.
         if self._table_mirror is None:
             t = self.state.table
-            self._table_mirror = fetch_numpy((t.uid, t.pos_w))
+            self._table_mirror = fetch_numpy(self._table_rows(t.uid, t.pos_w))
         table_uids, table_pos = self._table_mirror
         table_uids = table_uids.astype(np.int64)
         order = np.argsort(table_uids, kind="stable")
@@ -1446,10 +1508,8 @@ class SLAMSystem(StereoTracker):
         if used.any():
             good = used & ~bad
             dead = used & bad
-            self.state = self.state.replace(table=_ba_writeback(
-                self.state.table, self._dev(slot_pad[good], torch.int64),
-                self._dev(X_opt[good], torch.float32),
-                self._dev(slot_pad[dead], torch.int64)))
+            self._write_back_rows(slot_pad[good].astype(np.int64), X_opt[good],
+                                  slot_pad[dead].astype(np.int64))
             self._table_mirror = None                   # positions changed
         # attach the live pose rigidly to the corrected last keyframe
         # (landmarks were updated DIRECTLY by BA above — no map transform)

@@ -38,6 +38,7 @@ from svi_mapper_tpu_torch.geometry.camera import StereoCamera
 from svi_mapper_tpu_torch.imu import interpolator as imu_mod
 from svi_mapper_tpu_torch.models import frame as frame_mod
 from svi_mapper_tpu_torch.models.slam import SLAMSystem
+from svi_mapper_tpu_torch.ops.image import equalize_hist, to_u8
 from svi_mapper_tpu_torch.solvers import pose_graph as pg_mod
 
 _DOWN_W = np.array([0.0, -1.0, 0.0], np.float64)
@@ -86,6 +87,17 @@ class StereoInertialTracker(SLAMSystem):
         self.gravity_obs: list[np.ndarray] = []       # per-keyframe down directions
 
     # ------------------------------------------------------------------
+    def preprocess(self, img) -> torch.Tensor:
+        """equalizeHist of one raw frame (ref CTrackerSVI.cpp:339-341) as
+        the JAX method gives it: with ``equalize``, the image clipped to
+        [0, 255] and truncated to uint8 is equalized; float32 on the
+        tracker's device either way. No remap (the frame steps remap
+        through ``frame.svi_preprocess``)."""
+        x = frame_mod._to_image(img, self.device)
+        if self.equalize:
+            x = equalize_hist(to_u8(x))
+        return x.to(torch.float32)
+
     def _pad_samples(self, dts, omega, accel):
         """One frame's sample block padded to the cap on the host (the most
         recent ``cap`` rows kept if oversupplied): ``(dts [cap], omega

@@ -4,6 +4,11 @@ Equivalent of the reference's tracker classes (``CTrackerGT`` — ground-truth
 pose playback; ``CTrackerSV`` — pure stereo visual odometry). The device
 does all dense work in :func:`svi_mapper_tpu_torch.models.frame.process_frame`;
 this thin host class feeds images and keeps the trajectory/keyframe records.
+
+``state`` may be one that ``parallel.mesh.shard_state`` placed on a ``map``
+mesh: the frame step then runs on each rank's rows, the host records are
+built from the gathered table and are the same on every rank, and the
+world shift moves each rank's own rows.
 """
 
 from __future__ import annotations
@@ -129,15 +134,35 @@ class StereoTracker:
             return np.asarray(T_int, np.float64)
         return np.asarray(T_int, np.float64) @ self._translate4(-self.world_offset)
 
+    def _local_state(self):
+        """``(state, shards)``: the live state on plain tensors (this
+        rank's rows of a sharded table) and its mesh collectives, None on
+        one device."""
+        shards = frame_mod.shards_of(self.state)
+        return (self.state if shards is None else shards.local_state(self.state)), shards
+
+    def _set_local_state(self, state, shards) -> None:
+        """Store a state :meth:`_local_state` gave out, with its placements."""
+        self.state = state if shards is None else shards.wrap_state(state)
+
+    def _table_rows(self, *tensors) -> list:
+        """Tensors of the live table's rows with every row: gathered over
+        the mesh of a sharded state, as they are on one device."""
+        shards = frame_mod.shards_of(self.state)
+        if shards is None:
+            return list(tensors)
+        return shards.gather(*[shards.local(t) for t in tensors])
+
     def _maybe_world_shift(self) -> None:
         if self.world_shift_threshold_m is None:
             return
         # read the latest RECORDED pose (already on the host) for the
         # threshold check; the live state is read only when a shift fires
+        live = self._local_state()[0]
         if self.trajectory:
             T = np.asarray(self.trajectory[-1], np.float64)
         else:
-            T = self.state.T_wc.cpu().numpy().astype(np.float64)
+            T = live.T_wc.cpu().numpy().astype(np.float64)
         c = -T[:3, :3].T @ T[:3, 3]              # camera center (internal)
         if not np.isfinite(c).all():
             # catastrophic tracking loss: rebasing about a NaN/inf center
@@ -146,7 +171,7 @@ class StereoTracker:
             return
         if np.linalg.norm(c) <= self.world_shift_threshold_m:
             return
-        T_live = self.state.T_wc.cpu().numpy().astype(np.float64)
+        T_live = live.T_wc.cpu().numpy().astype(np.float64)
         c_live = -T_live[:3, :3].T @ T_live[:3, 3]
         if np.isfinite(c_live).all():
             self._world_shift(c_live)
@@ -157,16 +182,17 @@ class StereoTracker:
         Tc = self._translate4(c)
         Tc32 = torch.from_numpy(Tc.astype(np.float32)).to(self.device)
         ct = torch.from_numpy(np.asarray(c, np.float32)).to(self.device)
-        t = self.state.table
-        self.state = self.state.replace(
-            T_wc=self.state.T_wc @ Tc32,
-            T_wc_prev=self.state.T_wc_prev @ Tc32,
-            T_last_keyframe=self.state.T_last_keyframe @ Tc32,
+        st, shards = self._local_state()
+        t = st.table
+        self._set_local_state(st.replace(
+            T_wc=st.T_wc @ Tc32,
+            T_wc_prev=st.T_wc_prev @ Tc32,
+            T_last_keyframe=st.T_last_keyframe @ Tc32,
             table=t.replace(
                 pos_w=t.pos_w - ct[None, :],
                 meas_T_wc=torch.einsum("lmij,jk->lmik", t.meas_T_wc, Tc32),
             ),
-        )
+        ), shards)
         # host records move to the new internal frame in float64
         self.trajectory = [np.asarray(T, np.float64) @ Tc
                            for T in self.trajectory]
@@ -218,15 +244,17 @@ class StereoTracker:
         """Snapshot visible optimal landmarks (ref keyframe = cloud of
         visible optimal landmarks, CTrackerGT.cpp:222-250)."""
         t = self.state.table
-        sel = (t.active & t.is_optimal).cpu().numpy()
+        active, optimal, uid, pos_w, desc = self._table_rows(
+            t.active, t.is_optimal, t.uid, t.pos_w, t.desc_left_ref)
+        sel = (active & optimal).cpu().numpy()
         self.keyframes.append(
             KeyframeRecord(
                 index=len(self.keyframes),
                 frame_idx=self.frame_count - 1,
                 T_wc=np.asarray(out.T_wc),
-                landmark_uids=t.uid.cpu().numpy()[sel],
-                points_w=t.pos_w.cpu().numpy()[sel],
-                descriptors=t.desc_left_ref.cpu().numpy()[sel],
+                landmark_uids=uid.cpu().numpy()[sel],
+                points_w=pos_w.cpu().numpy()[sel],
+                descriptors=desc.cpu().numpy()[sel],
             )
         )
 

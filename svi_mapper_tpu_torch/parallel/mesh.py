@@ -1,4 +1,5 @@
-"""Device meshes and the placements of the SLAM state.
+"""Device meshes, the placements of the SLAM state, and the collectives of
+the landmark-sharded frame step.
 
 The reference is strictly single-process (SURVEY.md §2.9); this layer is
 new capability. The pipeline's natural data parallelism is over landmark
@@ -6,8 +7,17 @@ table rows (tracking, measurement updates, per-landmark GN) and map blocks
 (BA): the landmark axis shards over a 1-D ``map`` mesh dimension, and
 images, poses and scalars replicate. The placements are DTensor ones:
 ``Shard(0)`` for every leaf of the landmark table, ``Replicate()`` for the
-rest. Nothing partitions the eager frame step by itself here (ROADMAP,
-queue 3); the sharded BA reduces its Schur system explicitly
+rest.
+
+The frame step (``models.frame.process_frame`` / ``process_chunk``) takes
+the state :func:`shard_state` returns. It unwraps the DTensors once, runs
+every op on this rank's own rows as plain tensors, and calls
+:class:`LandmarkShards` exactly where the step reduces or selects across
+the landmark axis (where XLA inserts a ``psum`` in the JAX package); on a
+state on one device those calls are not made. Every exchange is an
+``all_reduce`` (SUM / MIN / MAX), gathers included, so the same code runs
+over NCCL and over gloo, whose CUDA support covers ``all_reduce``. The
+sharded BA reduces its Schur system the same way
 (:mod:`parallel.sharded_ba`).
 """
 
@@ -18,7 +28,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from svi_mapper_tpu_torch.mapping.landmarks import LandmarkTable
 from svi_mapper_tpu_torch.models.frame import FrameState
@@ -51,17 +61,145 @@ def state_shardings(mesh: DeviceMesh, state: FrameState) -> FrameState:
 
 def shard_state(state: FrameState, mesh: DeviceMesh) -> FrameState:
     """The state as DTensors on ``mesh``: the table's rows split over
-    ``map``, the rest replicated."""
-    placements = state_shardings(mesh, state)
-
-    def put(obj, place):
-        return dataclasses.replace(obj, **{
-            f.name: distribute_tensor(getattr(obj, f.name), mesh, getattr(place, f.name))
-            for f in dataclasses.fields(obj) if f.name != "table"})
-
-    return put(state, placements).replace(table=put(state.table, placements.table))
+    ``map``, the rest replicated. Every rank passes the same whole state
+    and keeps its own contiguous block of rows (no data moves). The
+    capacity must be a multiple of the mesh size (``ValueError``
+    otherwise), as the JAX dry run rounds it."""
+    shards = LandmarkShards(mesh)
+    L = state.table.capacity
+    if L % shards.world:
+        raise ValueError(
+            f"a table of {L} landmarks does not split over {shards.world} ranks")
+    per = L // shards.world
+    mine = slice(shards.rank * per, (shards.rank + 1) * per)
+    table = state.table.replace(**{
+        f.name: getattr(state.table, f.name)[mine]
+        for f in dataclasses.fields(LandmarkTable)})
+    return shards.wrap_state(state.replace(table=table))
 
 
 def replicate(x, mesh: DeviceMesh):
     """Replicate a tensor (an image, a pose) over the mesh."""
     return distribute_tensor(x, mesh, (Replicate(),))
+
+
+def _plain(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+class LandmarkShards:
+    """This rank's view of a ``map``-sharded landmark table: which rows it
+    holds, and the collectives the frame step calls where it crosses them.
+
+    Every method is one ``all_reduce`` over the ``map`` group. A rank whose
+    collective fails raises (``torch.distributed``'s error); no method runs
+    anything unsharded in its place."""
+
+    def __init__(self, mesh: DeviceMesh):
+        self.mesh = mesh
+        self.group = mesh.get_group("map")
+        self.world = dist.get_world_size(self.group)
+        self.rank = mesh.get_local_rank("map")
+
+    @staticmethod
+    def of(rows) -> "LandmarkShards | None":
+        """The shards of a tensor of table rows: its mesh's for a DTensor,
+        None for a tensor on one device."""
+        return LandmarkShards(rows.device_mesh) if isinstance(rows, DTensor) else None
+
+    # --- placements --------------------------------------------------------
+    local = staticmethod(_plain)
+
+    def local_state(self, state: FrameState) -> FrameState:
+        """The state with plain tensors: this rank's rows of the table, the
+        replicated fields whole."""
+        def unwrap(obj):
+            return dataclasses.replace(obj, **{
+                f.name: _plain(getattr(obj, f.name))
+                for f in dataclasses.fields(obj) if f.name != "table"})
+
+        return unwrap(state).replace(table=unwrap(state.table))
+
+    def wrap_rows(self, x: torch.Tensor, dim: int = 0) -> DTensor:
+        """This rank's rows ``x`` as a DTensor split along ``dim``."""
+        return DTensor.from_local(x, self.mesh, (Shard(dim),), run_check=False)
+
+    def wrap_state(self, state: FrameState) -> FrameState:
+        """The inverse of :meth:`local_state`: the placements of
+        :func:`state_shardings`."""
+        rep = (Replicate(),)
+        table = state.table.replace(**{
+            f.name: self.wrap_rows(getattr(state.table, f.name))
+            for f in dataclasses.fields(LandmarkTable)})
+        return state.replace(**{
+            f.name: DTensor.from_local(getattr(state, f.name), self.mesh, rep,
+                                       run_check=False)
+            for f in dataclasses.fields(FrameState) if f.name != "table"},
+            table=table)
+
+    def offset(self, rows: int) -> int:
+        """The global index of this rank's first row, ``rows`` per rank."""
+        return self.rank * rows
+
+    # --- collectives -------------------------------------------------------
+    def _all_reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        dist.all_reduce(x, op=op, group=self.group)
+        return x
+
+    def sum(self, *tensors: torch.Tensor) -> list[torch.Tensor]:
+        """Tensors of one dtype summed over the ranks through ONE
+        ``all_reduce`` of their concatenation."""
+        flat = self._all_reduce(torch.cat([t.reshape(-1) for t in tensors]),
+                                dist.ReduceOp.SUM)
+        out, at = [], 0
+        for t in tensors:
+            out.append(flat[at: at + t.numel()].view(t.shape))
+            at += t.numel()
+        return out
+
+    def min(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise minimum over the ranks (a new tensor)."""
+        return self._all_reduce(x.clone(), dist.ReduceOp.MIN)
+
+    def any(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise OR of a bool tensor over the ranks."""
+        return self._all_reduce(x.to(torch.uint8), dist.ReduceOp.MAX).bool()
+
+    def all(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise AND of a bool tensor over the ranks."""
+        return self._all_reduce(x.to(torch.uint8), dist.ReduceOp.MIN).bool()
+
+    def exclusive_prefix(self, count: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(sum over the lower ranks, sum over all ranks)`` of a scalar
+        count: each rank writes its count into its own entry of a zero
+        ``[world]`` buffer, and one SUM gathers them."""
+        buf = torch.zeros(self.world, dtype=count.dtype, device=count.device)
+        buf[self.rank] = count
+        self._all_reduce(buf, dist.ReduceOp.SUM)
+        return torch.sum(buf[: self.rank]), torch.sum(buf)
+
+    def gather(self, *tensors: torch.Tensor, dim: int = 0) -> list[torch.Tensor]:
+        """Every rank's rows of each tensor along ``dim``, in rank order,
+        through ONE SUM of a zero ``[world, bytes]`` buffer that holds each
+        rank's bytes in its own row: adding zeros to a byte keeps it, so
+        the result has the rows' exact bits (a float's sign of zero and its
+        NaNs included)."""
+        moved = [t.movedim(dim, 0).contiguous() for t in tensors]
+        parts = [t.view(torch.uint8).reshape(-1) if t.dtype != torch.bool
+                 else t.to(torch.uint8).reshape(-1) for t in moved]
+        sizes = [p.numel() for p in parts]
+        buf = torch.zeros((self.world, sum(sizes)), dtype=torch.uint8,
+                          device=tensors[0].device)
+        buf[self.rank] = torch.cat(parts)
+        self._all_reduce(buf, dist.ReduceOp.SUM)
+        out, at = [], 0
+        for t, m, n in zip(tensors, moved, sizes):
+            rows = buf[:, at: at + n].reshape((self.world,) + m.shape[:1] + (-1,))
+            if t.dtype == torch.bool:
+                full = rows.bool()
+            else:
+                full = rows.contiguous().view(t.dtype)
+            full = full.reshape((self.world * m.shape[0],) + m.shape[1:])
+            out.append(full.movedim(0, dim))
+            at += n
+        return out

@@ -26,6 +26,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
 from svi_mapper_tpu_torch.geometry.camera import StereoCamera
 from svi_mapper_tpu_torch.solvers import ba as ba_mod
@@ -46,6 +47,32 @@ def landmark_sum(group):
         return out
 
     return reduce
+
+
+def shard_ba_inputs(
+    mesh: DeviceMesh,
+    T_wc: torch.Tensor,
+    points_w: torch.Tensor,
+    obs_uv: torch.Tensor,
+    obs_mask: torch.Tensor,
+    fix_mask: torch.Tensor,
+):
+    """The BA inputs as DTensors on ``mesh``: the landmark axis over
+    ``map`` (``points_w`` along its rows, ``obs_uv`` and ``obs_mask`` along
+    L, their axis 1), ``T_wc`` and ``fix_mask`` replicated. Every rank
+    passes the same whole problem; L must split evenly (pad it first, as
+    :func:`bundle_adjust_sharded` does; ``ValueError`` otherwise)."""
+    n = mesh.size()
+    if points_w.shape[0] % n:
+        raise ValueError(f"{points_w.shape[0]} landmarks do not split over {n} ranks")
+    rep, lnd, k_lnd = (Replicate(),), (Shard(0),), (Shard(1),)
+    return (
+        distribute_tensor(T_wc, mesh, rep),
+        distribute_tensor(points_w, mesh, lnd),
+        distribute_tensor(obs_uv, mesh, k_lnd),
+        distribute_tensor(obs_mask, mesh, k_lnd),
+        distribute_tensor(fix_mask, mesh, rep),
+    )
 
 
 def bundle_adjust_sharded(

@@ -15,6 +15,11 @@ frozen (one host read per iteration) or at ``max_iterations``.
 
 Acceptance gates are the reference's (CLandmark.h:90-98): >= 5 measurements,
 inlier ratio > 0.5 at 10 px^2, average error < 9 px^2 -> ``is_optimal``.
+
+On a landmark-sharded table (``shards``) each rank refines its own rows and
+the loop's end flag is OR-ed over the ranks before it is read, so every
+shard iterates as often as the whole table does on one device (a frozen
+row stays frozen, so each row gets its one-device bits).
 """
 
 from __future__ import annotations
@@ -59,7 +64,7 @@ def _reproject(R, t, p, fx, fy, cx, cy, bq):
 
 
 def _refine_soa(table, fx, fy, cx, cy, bq,
-                kernel_px2, max_iterations, convergence, damping):
+                kernel_px2, max_iterations, convergence, damping, shards=None):
     """Refinement core. Returns per-landmark
     (p_opt [L,3], inlier_ratio, avg_err, ok_geom)."""
     dtype = table.pos_w.dtype
@@ -124,7 +129,11 @@ def _refine_soa(table, fx, fy, cx, cy, bq,
 
     delta = torch.full((L,), float("inf"), dtype=dtype, device=dev)
     it = 0
-    while it < max_iterations and bool(torch.any(delta > convergence)):
+    def any_live() -> bool:
+        live = torch.any(delta > convergence)
+        return bool(live if shards is None else shards.any(live))
+
+    while it < max_iterations and any_live():
         p, delta = step(p, delta)
         it += 1
 
@@ -208,6 +217,7 @@ def optimize_landmarks(
     convergence: float = 1e-5,
     damping: float = 1e-6,
     idwa_fallback: bool = False,
+    shards=None,
 ) -> LandmarkTable:
     """Refine every eligible landmark in the table in one batched
     computation (replaces the per-frame ``optimizeActiveLandmarks`` loop,
@@ -226,7 +236,7 @@ def optimize_landmarks(
 
     p_stack, inlier_ratio, avg_err, ok_geom = _refine_soa(
         table, fx, fy, cx, cy, bq,
-        kernel_px2, max_iterations, convergence, damping)
+        kernel_px2, max_iterations, convergence, damping, shards)
 
     eligible = table.active & (table.meas_count >= min_measurements)
     success = (

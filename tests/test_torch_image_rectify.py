@@ -239,3 +239,28 @@ def test_rectify_maps_identity_when_already_rectified():
     mx, my = t_img.undistort_rectify_maps(K, np.zeros(4), np.eye(3), P, 64, 48)
     u, v = np.meshgrid(np.arange(64, dtype=np.float32), np.arange(48, dtype=np.float32))
     assert np.allclose(mx, u, atol=1e-4) and np.allclose(my, v, atol=1e-4)
+
+
+@pytest.mark.parametrize("equalize", [False, True])
+@pytest.mark.parametrize("kind", ["random", "two_level", "dark_skewed", "float_range"])
+def test_svi_preprocess_matches_jax_method(rng, equalize, kind):
+    """``StereoInertialTracker.preprocess`` against the JAX method, bit for
+    bit on uint8-range input, with ``equalize`` on and off: the raw frame
+    as a uint8 array, and as float32 values in [0, 255] with fractions (the
+    uint8 truncation runs only when equalizing). Both methods read only the
+    tracker's ``equalize`` (and the port's its ``device``), so they are
+    called on a stand-in that carries those."""
+    from types import SimpleNamespace
+
+    from svi_mapper_tpu.models.svi import StereoInertialTracker as JaxSVI
+    from svi_mapper_tpu_torch.models.svi import StereoInertialTracker as PortSVI
+
+    if kind == "float_range":
+        img = (rng.random((48, 64)) * 255.0).astype(np.float32)
+    else:
+        img = _u8(rng, (48, 64), kind)
+    want = np.asarray(JaxSVI.preprocess(SimpleNamespace(equalize=equalize), img))
+    got = PortSVI.preprocess(SimpleNamespace(equalize=equalize, device=torch.device("cpu")),
+                             img)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    assert np.array_equal(got.numpy(), want)

@@ -68,6 +68,56 @@ def test_module_layout_mirrors_the_jax_package():
                        "stereo_profiles.cu", "track_scores.cu"]
 
 
+def _public_names(root: Path) -> dict:
+    """Per module (dotted, relative to ``root``): the public top-level
+    ``def`` / ``class`` names, and ``Class.method`` for every public method
+    of a public class, read from the source with ``ast``."""
+    import ast
+
+    out = {}
+    for path in sorted(root.rglob("*.py")):
+        mod = ".".join(path.relative_to(root).with_suffix("").parts).removesuffix(".__init__")
+        names = out.setdefault(mod, set())
+        for node in ast.parse(path.read_text()).body:
+            if (isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+                    and not node.name.startswith("_")):
+                names.add(node.name)
+                if isinstance(node, ast.ClassDef):
+                    names |= {f"{node.name}.{sub.name}" for sub in node.body
+                              if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef))
+                              and not sub.name.startswith("_")}
+    return out
+
+
+def test_public_names_mirror_the_jax_package():
+    """Every public function, class and method of the JAX package has its
+    twin under the same name in the port's twin module, but for the decided
+    differences: K6's Pallas entry is ported as ``hamming_distance_matrix``;
+    the native build's staleness test is replaced by the source hash (F14);
+    ``PinholeCamera``'s intrinsics are float fields in the port, not array
+    properties; the port's ``frontend/tracking.py`` imports ``tier_scores``
+    and ``window_scores`` from ``ops/track_kernel.py`` instead of defining
+    them."""
+    decided = {
+        "ops.hamming": {"hamming_pallas"},
+        "native.build": {"is_stale"},
+        "geometry.camera": {f"PinholeCamera.{k}" for k in ("fx", "fy", "cx", "cy")},
+        "frontend.tracking": {"tier_scores", "window_scores"},
+    }
+    renamed = {"tools.validate_tpu_kernels": "tools.validate_kernels"}
+    jax_names = _public_names(REPO / "svi_mapper_tpu")
+    port_names = _public_names(REPO / "svi_mapper_tpu_torch")
+    missing = {mod: sorted(names - port_names.get(renamed.get(mod, mod), set()))
+               for mod, names in jax_names.items()}
+    missing = {mod: names for mod, names in missing.items() if names}
+    assert missing == {mod: sorted(names) for mod, names in decided.items()}
+    from svi_mapper_tpu_torch.frontend import tracking
+    from svi_mapper_tpu_torch.ops import track_kernel
+
+    assert tracking.tier_scores is track_kernel.tier_scores
+    assert tracking.window_scores is track_kernel.window_scores
+
+
 def test_importing_every_module_leaves_jax_out():
     """In a fresh interpreter: import every module of the port (and
     chip_smoke.py's imports) and look at sys.modules. The dataset readers'
