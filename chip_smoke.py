@@ -107,14 +107,19 @@ one CUDA card, ``nvcc`` and nothing from the network. It
    1241 x 376, every share in (0, 1.05] (``utilization``). Each phase
    requires the kernels of its path to have launched.
 
-After the whole system's loop (5), ``sharded_frame`` drives the
+After the checkpoint phases (7), ``sharded_frame`` drives the
 landmark-sharded frame step (``parallel.mesh.shard_state``): one NCCL rank
 in this process over main_path's 24 frames, which must give main_path's
 bits; then two gloo ranks spawned on the one card (gloo's CUDA support
 probed first), 512 table rows each, over the same frames (integer outputs
-and table fields equal to main_path's, poses within 1e-4) and over the
-whole system's loop (``slam_loop``'s gates on each rank, the two ranks'
-trajectories the same bits, K4 and K6 launched on each).
+and table fields equal to main_path's, poses within 1e-4), over the whole
+system's loop (``slam_loop``'s gates on each rank, the two ranks'
+trajectories the same bits, K4 and K6 launched on each), with the back-end
+worker, and over the stereo-inertial loop (``svi_loop``'s figures and
+gates, its launches on each rank); both loops save a checkpoint sharded at
+frame 96 (every row, equal to the one-card phases' files) and resume from
+it on each rank, and the host reads of the sharded SV loop (cloud, g2o,
+viewer, logger dumps) must equal the one-card system's.
 
 Every phase prints one line of JSON. Any failure raises, so the exit code
 is non-zero and the final line is not printed. The last line is
@@ -2533,21 +2538,15 @@ def zero_calibration():
         noise_gyro=np.zeros(3), noise_accel=np.zeros(3), n_samples=200)
 
 
-def run_svi_loop(device, keep: dict | None = None) -> tuple[dict, dict]:
-    """``bench.py:bench_svi`` through the port's ``StereoInertialTracker``,
-    once: the 208-frame loop at 376 x 1241, 10 IMU samples a frame,
-    ``process_many_imu(chunk=32)`` -> ``finalize_backend()``, loop closure
-    and local BA on. The report's ``ba_windows`` names the kernel, K and L
-    of every BA window the run assembled. ``keep`` as for
-    :func:`run_slam_loop`."""
-    import numpy as np
+def svi_loop_inputs(device):
+    """``bench.py:bench_svi``'s loop on the card: ``(params, seq, imgs_l,
+    imgs_r, calibration, (dts, oms, acs), seconds)``, the frames rendered
+    and the 10 IMU samples a frame synthesized from the ground truth."""
     import torch
 
     from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
-    from svi_mapper_tpu_torch.eval import trajectory as ev
     from svi_mapper_tpu_torch.imu import interpolator as imu
     from svi_mapper_tpu_torch.io import synthetic
-    from svi_mapper_tpu_torch.models.svi import StereoInertialTracker
 
     params = dataclasses.replace(
         DEFAULT_PARAMS, max_landmarks=N_LANDMARKS, max_detections=N_LANDMARKS,
@@ -2565,16 +2564,20 @@ def run_svi_loop(device, keep: dict | None = None) -> tuple[dict, dict]:
     omega, accel = imu.synthesize_measurements(
         seq.poses_wc, SVI_DT, calib=calib0, noise_gyro=0.001, noise_accel=0.02,
         device=device)
-    dts, oms, acs = svi_blocks(LOOP_FRAMES, omega, accel)
+    blocks = svi_blocks(LOOP_FRAMES, omega, accel)
     torch.cuda.synchronize()
-    stage_s = time.perf_counter() - t0
+    return params, seq, imgs_l, imgs_r, calib0, blocks, time.perf_counter() - t0
+
+
+def svi_loop_tracker(seq, calib0, params, device):
+    """The SVI loop's tracker, noting the BA windows it assembles and
+    whether each pose graph and BA window received gravity unaries:
+    ``(tracker, windows, gravity_to_pose_graphs, gravity_to_ba_windows)``."""
+    from svi_mapper_tpu_torch.models.svi import StereoInertialTracker
 
     windows, grav_pg, grav_ba = [], [], []
 
     class Recording(StereoInertialTracker):
-        """Notes whether each pose graph and BA window received gravity
-        unaries."""
-
         def _gravity_priors(self, N0, N):
             g = super()._gravity_priors(N0, N)
             grav_pg.append(g is not None and bool(g.valid[:N0].all()))
@@ -2587,6 +2590,91 @@ def run_svi_loop(device, keep: dict | None = None) -> tuple[dict, dict]:
 
     tr = Recording(seq.cam, calib0, params, equalize=False, device=device)
     record_ba_windows(tr, windows)
+    return tr, windows, grav_pg, grav_ba
+
+
+def svi_loop_outcome(tr, outs, seq, windows, grav_pg, grav_ba, counts) -> dict:
+    """What the SVI loop's gates read: its keyframes, closures, ATEs,
+    refusals and gravity unaries, with both trajectories, the velocity and
+    the gravity observations."""
+    import numpy as np
+
+    from svi_mapper_tpu_torch.eval import trajectory as ev
+
+    opt = tr.optimized_trajectory()
+    raw = tr.trajectory_array
+    crossings, at_wall = wall_crossings(seq.poses_wc, 2)
+    rejected = [i for i, o in enumerate(outs[1:], 1) if not bool(o.posit_ok)]
+    first = rejected[0] if rejected else LOOP_FRAMES
+    return {
+        "frames": len(outs), "keyframes": len(tr.slam_keyframes),
+        "gravity_obs": len(tr.gravity_obs),
+        "stats": {k: int(v) for k, v in tr.stats.items()},
+        "accepted_closures": [[c.ref_kf, c.query_kf] for c in tr.accepted_closures],
+        "ba_windows": windows_by_shape(windows, counts),
+        "gravity_to_pose_graphs": grav_pg, "gravity_to_ba_windows": grav_ba,
+        "ate_recorded_m": ev.ate_rmse(raw, seq.poses_wc),
+        "ate_optimised_m": ev.ate_rmse(opt, seq.poses_wc),
+        "ate_recorded_before_first_refusal_m": ev.ate_rmse(raw[:first], seq.poses_wc[:first]),
+        "frames_before_first_refusal": first,
+        "closure_transform_err_m": closure_errors(tr, seq.poses_wc),
+        "wall_crossings_at_frames": crossings, "near_wall": sorted(at_wall),
+        "posit_rejected_at_frames": rejected,
+        "poses_finite": all(np.isfinite(np.asarray(o.T_wc)).all() for o in outs),
+        "raw": raw, "optimised": opt, "velocity": tr.velocity.cpu().numpy(),
+        "gravity_obs_rows": np.asarray(tr.gravity_obs, np.float32).reshape(-1, 3),
+    }
+
+
+def require_svi_loop(r: dict, counts: dict, where: str) -> None:
+    """The SVI loop's gates on :func:`svi_loop_outcome`'s ``r``: every pose
+    finite, refusals only near a wall crossing, the loop closed, the ATE
+    before the first refusal and the optimised ATE within their bounds,
+    closures near the truth, one gravity observation per keyframe, gravity
+    unaries to every pose graph and BA window, every kernel launched."""
+    import numpy as np
+
+    st, first = r["stats"], r["frames_before_first_refusal"]
+    require(r["frames"] == LOOP_FRAMES and r["poses_finite"]
+            and np.isfinite(r["optimised"]).all(), f"{where}: a pose is not finite")
+    bad = [i for i in r["posit_rejected_at_frames"] if i not in r["near_wall"]]
+    require(not bad, f"{where}: pose solve rejected on frames {bad} "
+            f"(wall crossings at {r['wall_crossings_at_frames']})")
+    require(st["closures_accepted"] >= 1 and st["pose_graph_runs"] >= 1
+            and st["ba_runs"] >= 1, f"{where}: the SVI loop was not closed: {st}")
+    require(first >= 20 and r["ate_recorded_before_first_refusal_m"]
+            < SVI_ATE_BEFORE_FIRST_REFUSAL_M,
+            f"{where}: ATE over the {first} frames before the first refusal: "
+            f"{r['ate_recorded_before_first_refusal_m']} m")
+    require(r["ate_optimised_m"] < SVI_ATE_BOUND_M,
+            f"{where}: ATE: recorded {r['ate_recorded_m']} m, optimised "
+            f"{r['ate_optimised_m']} m")
+    require(max(r["closure_transform_err_m"]) < LOOP_CLOSURE_ERR_M,
+            f"{where}: accepted closures off by {r['closure_transform_err_m']} m")
+    require(r["gravity_obs"] == r["keyframes"],
+            f"{where}: {r['gravity_obs']} gravity observations for {r['keyframes']} keyframes")
+    require(len(r["gravity_to_pose_graphs"]) == st["pose_graph_runs"]
+            and all(r["gravity_to_pose_graphs"]),
+            f"{where}: gravity priors to the pose graphs: {r['gravity_to_pose_graphs']}")
+    n_windows = sum(w["windows"] for w in r["ba_windows"])
+    require(len(r["gravity_to_ba_windows"]) == n_windows and all(r["gravity_to_ba_windows"]),
+            f"{where}: gravity unaries to the BA windows: {r['gravity_to_ba_windows']}")
+    require(all(counts[k] > 0 for k in FRONTEND_KERNELS + (CLOSURE_KERNEL,))
+            and counts["schur_assemble"] + counts["schur_assemble_tiled"] > 0,
+            f"{where}: kernel not launched on the SVI loop: {counts}")
+
+
+def run_svi_loop(device, keep: dict | None = None) -> tuple[dict, dict]:
+    """``bench.py:bench_svi`` through the port's ``StereoInertialTracker``,
+    once: the 208-frame loop at 376 x 1241, 10 IMU samples a frame,
+    ``process_many_imu(chunk=32)`` -> ``finalize_backend()``, loop closure
+    and local BA on. The report's ``ba_windows`` names the kernel, K and L
+    of every BA window the run assembled. ``keep`` as for
+    :func:`run_slam_loop`."""
+    import torch
+
+    params, seq, imgs_l, imgs_r, calib0, (dts, oms, acs), stage_s = svi_loop_inputs(device)
+    tr, windows, grav_pg, grav_ba = svi_loop_tracker(seq, calib0, params, device)
     n_sync = LOOP_SYNC_CHUNKS * LOOP_CHUNK
     outs = []
     reset_launch_counts()
@@ -2606,18 +2694,8 @@ def run_svi_loop(device, keep: dict | None = None) -> tuple[dict, dict]:
         keep.update(system=tr, seq=seq, params=params, imgs=(imgs_l, imgs_r),
                     blocks=(dts, oms, acs))
     counts = launch_counts()
-    opt = tr.optimized_trajectory()
-    raw = tr.trajectory_array
-
-    crossings, at_wall = wall_crossings(seq.poses_wc, 2)
-    rejected = [i for i, o in enumerate(outs[1:], 1) if not bool(o.posit_ok)]
-    n_kf = len(tr.slam_keyframes)
-    st = tr.stats
-    ate_rec, ate_opt = ev.ate_rmse(raw, seq.poses_wc), ev.ate_rmse(opt, seq.poses_wc)
-    first = rejected[0] if rejected else LOOP_FRAMES
-    ate_before = ev.ate_rmse(raw[:first], seq.poses_wc[:first])
-    closure_err = closure_errors(tr, seq.poses_wc)
-    on_path = FRONTEND_KERNELS + (CLOSURE_KERNEL,)
+    r = svi_loop_outcome(tr, outs, seq, windows, grav_pg, grav_ba, counts)
+    n_kf = r["keyframes"]
     tm = tr.timings
     report = {
         "phase": "svi_loop", "frames": LOOP_FRAMES, "image": [H, W_RAW],
@@ -2626,20 +2704,17 @@ def run_svi_loop(device, keep: dict | None = None) -> tuple[dict, dict]:
         "stage_seconds": stage_s, "seconds": seconds,
         "frames_per_s": LOOP_FRAMES / seconds,
         "checkpoint_seconds_left_out": checkpoint_s,
-        "keyframes": n_kf, "gravity_obs": len(tr.gravity_obs),
-        "stats": {k: int(v) for k, v in st.items()},
-        "accepted_closures": [[c.ref_kf, c.query_kf] for c in tr.accepted_closures],
+        **{k: r[k] for k in ("keyframes", "gravity_obs", "stats", "accepted_closures")},
         "jax_package_cpu": SVI_LOOP_JAX_CPU,
-        "ba_windows": windows_by_shape(windows, counts),
-        "gravity_to_pose_graphs": grav_pg, "gravity_to_ba_windows": grav_ba,
-        "ate_recorded_m": ate_rec, "ate_optimised_m": ate_opt,
+        **{k: r[k] for k in ("ba_windows", "gravity_to_pose_graphs", "gravity_to_ba_windows",
+                             "ate_recorded_m", "ate_optimised_m")},
         "ate_bound_m": SVI_ATE_BOUND_M,
-        "ate_recorded_before_first_refusal_m": ate_before,
-        "frames_before_first_refusal": first,
+        **{k: r[k] for k in ("ate_recorded_before_first_refusal_m",
+                             "frames_before_first_refusal")},
         "ate_before_first_refusal_bound_m": SVI_ATE_BEFORE_FIRST_REFUSAL_M,
-        "closure_transform_err_m": closure_err,
+        "closure_transform_err_m": r["closure_transform_err_m"],
         "n_tracked_min": min(int(o.n_tracked) for o in outs[1:]),
-        "wall_crossings_at_frames": crossings, "posit_rejected_at_frames": rejected,
+        **{k: r[k] for k in ("wall_crossings_at_frames", "posit_rejected_at_frames")},
         "timings_s": {k: float(v) for k, v in tm.items()},
         "tail_ms_per_keyframe": {
             k: 1e3 * tm.get(k, 0.0) / max(n_kf, 1)
@@ -2669,32 +2744,13 @@ def run_svi_loop(device, keep: dict | None = None) -> tuple[dict, dict]:
                           "frame_ms": 1e3 * tm["frame_total"] / LOOP_FRAMES}
     emit(report)             # before the checks: a failing run shows its numbers
 
-    poses_ok = all(np.isfinite(np.asarray(o.T_wc)).all() for o in outs)
-    require(len(outs) == LOOP_FRAMES and poses_ok and np.isfinite(opt).all(),
-            "a pose of the SVI loop is not finite")
-    bad = [i for i in rejected if i not in at_wall]
-    require(not bad, f"pose solve rejected on frames {bad} (wall crossings at {crossings})")
-    require(st["closures_accepted"] >= 1 and st["pose_graph_runs"] >= 1
-            and st["ba_runs"] >= 1, f"the SVI loop was not closed: {st}")
-    require(first >= 20 and ate_before < SVI_ATE_BEFORE_FIRST_REFUSAL_M,
-            f"ATE over the {first} frames before the first refusal: {ate_before} m")
-    require(ate_opt < SVI_ATE_BOUND_M,
-            f"ATE: recorded {ate_rec} m, optimised {ate_opt} m")
-    require(max(closure_err) < LOOP_CLOSURE_ERR_M,
-            f"accepted closures off by {closure_err} m from the ground truth")
-    require(len(tr.gravity_obs) == n_kf, f"{len(tr.gravity_obs)} gravity observations "
-            f"for {n_kf} keyframes")
-    require(len(grav_pg) == st["pose_graph_runs"] and all(grav_pg),
-            f"gravity priors to the pose graphs: {grav_pg}")
-    require(len(grav_ba) == len(windows) and all(grav_ba),
-            f"gravity unaries to the BA windows: {grav_ba}")
-    require(all(counts[k] > 0 for k in on_path)
-            and counts["schur_assemble"] + counts["schur_assemble_tiled"] > 0,
-            f"kernel not launched on the SVI loop: {counts}")
+    require_svi_loop(r, counts, "svi_loop")
     require(counts["stereo_match"] == k2_calls.calls
             and counts[CLOSURE_KERNEL] == scorings.calls,
             f"{k2_calls.calls} scanline matches and {scorings.calls} pool scorings "
             f"against launches {counts}")
+    if keep is not None:
+        keep["outcome"] = r
     return report, counts
 
 
@@ -4023,6 +4079,15 @@ SHARD_RANKS = 2
 # a rank whose collective waits this long raises (the process group's timeout)
 SHARD_COLLECTIVE_TIMEOUT_S = 120
 SHARD_POSE_TOL = 1e-4
+# the velocity is a pose difference over a 0.05 s frame interval: a pose
+# within SHARD_POSE_TOL moves it by up to ~2e-3 m/s; the CPU tests hold the
+# sharded tracker's to 1e-3 m/s
+SHARD_VELOCITY_TOL = 1e-3
+# what a checkpoint of the sharded loops is compared on, array by array,
+# with the one-card phases' files
+CKPT_STATE_KEYS = ("state__", "table__")
+CKPT_SVI_KEYS = CKPT_STATE_KEYS + ("svi__velocity", "svi__gravity_obs", "svi__T_cam_imu",
+                                   "svi__calib__")
 INT_OUTPUT_FIELDS = ("posit_ok", "n_tracked", "n_active", "n_optimal", "n_new",
                      "is_keyframe", "inliers", "instability")
 
@@ -4176,9 +4241,13 @@ def sharded_frames_on_rank(device) -> dict:
             "frames_per_s": len(outs) / seconds}
 
 
-def sharded_loop_on_rank(device, option: dict) -> dict:
+def sharded_loop_on_rank(device, option: dict, keep: dict | None = None) -> dict:
     """Parts 3 and 4 on one rank: ``SLAMSystem(**option).process_many(
-    chunk=32)`` + ``finalize_backend`` over loop (d) on the sharded state."""
+    chunk=32)`` + ``finalize_backend`` over loop (d) on the sharded state.
+    With ``keep`` (part 3) the run saves its checkpoint at ``CKPT_FRAME``
+    through :func:`loop_with_checkpoint` (every rank saves, rank 0 writes;
+    the saving is left out of the time), and ``keep`` gets the system, the
+    sequence and the frames."""
     import torch
 
     from svi_mapper_tpu_torch.eval import trajectory as ev
@@ -4189,15 +4258,19 @@ def sharded_loop_on_rank(device, option: dict) -> dict:
     seq, imgs_l, imgs_r, _ = render_loop(device)
     slam = SLAMSystem(seq.cam, params, device=device, **option)
     slam.state = shard_state(slam.state, make_map_mesh(device=device))
-    windows = []
+    windows, outs = [], []
     record_ba_windows(slam, windows)
     reset_launch_counts()
     t0 = time.perf_counter()
     with recording_schur_shapes() as shapes:
-        outs = slam.process_many(imgs_l, imgs_r, chunk=LOOP_CHUNK)
+        checkpoint_s = loop_with_checkpoint(
+            slam, keep, 0, outs,
+            lambda a, b: slam.process_many(imgs_l[a:b], imgs_r[a:b], chunk=LOOP_CHUNK))
         slam.finalize_backend()
         torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0 - checkpoint_s
+    if keep is not None:
+        keep.update(system=slam, seq=seq, imgs=(imgs_l, imgs_r))
     counts = launch_counts()
     raw, opt = slam.trajectory_array, slam.optimized_trajectory()
     crossings, at_wall = wall_crossings(seq.poses_wc, 1)
@@ -4206,6 +4279,7 @@ def sharded_loop_on_rank(device, option: dict) -> dict:
             if worker else None)
     slam.close()
     return {"frames": len(outs), "seconds": seconds, "frames_per_s": len(outs) / seconds,
+            "checkpoint_seconds_left_out": checkpoint_s,
             "worker": worker, "folds_or_futures_left": left,
             "launches_on_worker": worker_launches("backend"),
             "keyframes": len(slam.slam_keyframes),
@@ -4223,9 +4297,181 @@ def sharded_loop_on_rank(device, option: dict) -> dict:
             "schur_shapes": sorted(shapes), "launches": counts}
 
 
-def _sharded_rank(rank: int, n: int, address: str, results) -> None:
-    """One gloo rank on the card: the probe, part 2, part 3; its report
-    (or its traceback) goes into ``results``."""
+def trajectory_frames_differing(got: dict, want: dict, a: int, b: int) -> list[int]:
+    """The frames ``a .. b - 1`` whose recorded poses two system snapshots
+    (:func:`system_snapshot`) hold with other bits."""
+    return [a + i for i, (x, y) in enumerate(zip(got["trajectory"][a:b],
+                                                 want["trajectory"][a:b]))
+            if x.tobytes() != y.tobytes()]
+
+
+def sharded_resume_on_rank(device, keep: dict) -> dict:
+    """Part 6 on one rank, loop (d): ``load_checkpoint`` of the file part 3
+    saved at ``CKPT_FRAME`` (the state on one device) -> ``shard_state`` ->
+    the rest of the loop (``process_many(chunk=32)``, ``finalize_backend``);
+    against part 3's uninterrupted run."""
+    import numpy as np
+    import torch
+
+    from svi_mapper_tpu_torch.eval import trajectory as ev
+    from svi_mapper_tpu_torch.io.checkpoint import load_checkpoint
+    from svi_mapper_tpu_torch.parallel.mesh import make_map_mesh, shard_state
+
+    done, (imgs_l, imgs_r), seq = keep["system"], keep["imgs"], keep["seq"]
+    t0 = time.perf_counter()
+    tr = load_checkpoint(keep["path"], device=device)
+    tr.state = shard_state(tr.state, make_map_mesh(device=device))
+    load_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = tr.process_many(imgs_l[CKPT_FRAME:CKPT_END], imgs_r[CKPT_FRAME:CKPT_END],
+                           chunk=LOOP_CHUNK)
+    at_end = system_snapshot(tr)
+    outs += tr.process_many(imgs_l[CKPT_END:], imgs_r[CKPT_END:], chunk=LOOP_CHUNK)
+    tr.finalize_backend()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    opt = tr.optimized_trajectory()
+    return {"load_seconds": load_s, "seconds": seconds, "frames": len(outs),
+            "placements": str(tr.state.table.pos_w.placements),
+            "resumed_frames_differ_at": trajectory_frames_differing(
+                at_end, keep["at_end"], CKPT_FRAME, CKPT_END),
+            "state_at_frame_128_differs_in": snapshot_differences(keep["at_end"], at_end),
+            "keyframe_frames": [k.frame_idx for k in tr.slam_keyframes],
+            "uninterrupted_keyframe_frames": [k.frame_idx for k in done.slam_keyframes],
+            "whole_trajectory_equal": bool(np.array_equal(tr.trajectory_array,
+                                                          done.trajectory_array)),
+            "optimised_equal": bool(np.array_equal(opt, done.optimized_trajectory())),
+            "stats": {k: int(v) for k, v in tr.stats.items()},
+            "closure_transform_err_m": closure_errors(tr, seq.poses_wc),
+            "ate_optimised_m": ev.ate_rmse(opt, seq.poses_wc),
+            "launches": launch_counts(), "optimised": opt}
+
+
+def sharded_svi_on_rank(device, keep: dict) -> dict:
+    """Part 5 on one rank: configuration (e), ``bench.py:bench_svi``'s loop,
+    as ``run_svi_loop`` drives it (``process_many_imu(chunk=32)`` ->
+    ``finalize_backend``, loop closure and local BA on) on the sharded state,
+    saving its checkpoint at ``CKPT_FRAME`` as the one-card phase does (every
+    rank saves, rank 0 writes; left out of the time)."""
+    import torch
+
+    from svi_mapper_tpu_torch.parallel.mesh import make_map_mesh, shard_state
+
+    params, seq, imgs_l, imgs_r, calib0, (dts, oms, acs), _ = svi_loop_inputs(device)
+    tr, windows, grav_pg, grav_ba = svi_loop_tracker(seq, calib0, params, device)
+    tr.state = shard_state(tr.state, make_map_mesh(device=device))
+    outs = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with stereo_match_calls() as k2_calls, pool_count_calls() as scorings:
+        checkpoint_s = loop_with_checkpoint(
+            tr, keep, 0, outs,
+            lambda a, b: tr.process_many_imu(imgs_l[a:b], imgs_r[a:b], dts[a:b], oms[a:b],
+                                             acs[a:b], chunk=LOOP_CHUNK))
+        tr.finalize_backend()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0 - checkpoint_s
+    counts = launch_counts()
+    keep.update(imgs=(imgs_l, imgs_r), blocks=(dts, oms, acs))
+    tr.close()
+    return {**svi_loop_outcome(tr, outs, seq, windows, grav_pg, grav_ba, counts),
+            "seconds": seconds, "frames_per_s": len(outs) / seconds,
+            "checkpoint_seconds_left_out": checkpoint_s,
+            "placements": str(tr.state.table.pos_w.placements), "launches": counts,
+            "match_stereo_calls": k2_calls.calls, "pool_scorings": scorings.calls}
+
+
+def sharded_svi_resume_on_rank(device, keep: dict) -> dict:
+    """Part 6 on one rank, loop (e): ``load_checkpoint`` of the file part 5
+    saved -> ``shard_state`` -> frames 96-127, against part 5's
+    uninterrupted run at frame 128 (``checkpoint_svi``'s depth)."""
+    import torch
+
+    from svi_mapper_tpu_torch.io.checkpoint import load_checkpoint
+    from svi_mapper_tpu_torch.parallel.mesh import make_map_mesh, shard_state
+
+    (imgs_l, imgs_r), (dts, oms, acs) = keep["imgs"], keep["blocks"]
+    a, b = CKPT_FRAME, CKPT_END
+    tr = load_checkpoint(keep["path"], device=device)
+    tr.state = shard_state(tr.state, make_map_mesh(device=device))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tr.process_many_imu(imgs_l[a:b], imgs_r[a:b], dts[a:b], oms[a:b], acs[a:b],
+                        chunk=LOOP_CHUNK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    at_end = system_snapshot(tr)
+    return {"seconds": seconds, "placements": str(tr.state.table.pos_w.placements),
+            "resumed_frames_differ_at": trajectory_frames_differing(at_end, keep["at_end"],
+                                                                    a, b),
+            "velocity_at_frame_128_equal": (at_end["svi__velocity"].tobytes()
+                                            == keep["at_end"]["svi__velocity"].tobytes()),
+            "state_at_frame_128_differs_in": snapshot_differences(keep["at_end"], at_end),
+            "launches": launch_counts()}
+
+
+def gathered_copy(system, device):
+    """A shallow copy of ``system`` whose state is its (sharded) state
+    gathered onto one device (the host records shared)."""
+    import copy
+
+    from svi_mapper_tpu_torch import convert
+
+    clone = copy.copy(system)
+    clone.state = convert.state_from_numpy(convert.state_to_numpy(system.state), device)
+    return clone
+
+
+def host_reads(system, where: Path) -> dict:
+    """What each host read of a SLAM system gives: its last keyframe's
+    ``cloud_from_slam_state``, the ``snapshot_slam`` g2o bytes (with
+    landmarks), ``snapshot_tracker``'s arrays and the bytes of the
+    logger's ``finalize`` dumps; the files go under ``where`` (on a sharded
+    system every rank calls this and rank 0 writes them)."""
+    import numpy as np
+
+    from svi_mapper_tpu_torch.eval.viewer import snapshot_tracker
+    from svi_mapper_tpu_torch.io.cloud import cloud_from_slam_state
+    from svi_mapper_tpu_torch.io.g2o_export import snapshot_slam
+    from svi_mapper_tpu_torch.utils import loggers
+
+    cloud = cloud_from_slam_state(system.state, len(system.slam_keyframes) - 1,
+                                  system.frame_count - 1)
+    out = {f"cloud/{f.name}": np.asarray(getattr(cloud, f.name))
+           for f in dataclasses.fields(cloud)}
+    where.mkdir(parents=True, exist_ok=True)
+    snapshot_slam(system, where / "map.g2o")      # writes nothing without a keyframe
+    out["g2o"] = (where / "map.g2o").read_bytes() if system.slam_keyframes else b""
+    view = snapshot_tracker(system)
+    hud = view.pop("hud", {})
+    out.update({f"viewer/{k}": np.asarray(v) for k, v in view.items()})
+    out.update({f"viewer/hud/{k}": np.asarray(v) for k, v in hud.items()})
+    loggers.finalize(system, loggers.RunLogger(where / "logs"))
+    for name in ("landmarks_final", "landmarks_final_optimized", "trajectory_kitti"):
+        out[f"logs/{name}"] = (where / "logs" / f"{name}.txt").read_bytes()
+    return out
+
+
+def host_read_differences(got: dict, want: dict) -> list[str]:
+    """The reads of :func:`host_reads` that differ (bytes, or arrays with
+    NaNs equal), and those only one side has."""
+    import numpy as np
+
+    bad = sorted(set(got) ^ set(want))
+    for k in sorted(set(got) & set(want)):
+        a, b = got[k], want[k]
+        same = (a == b if isinstance(a, bytes)
+                else a.shape == b.shape and np.array_equal(a, b, equal_nan=a.dtype.kind == "f"))
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def _sharded_rank(rank: int, n: int, address: str, results, work_dir: str) -> None:
+    """One gloo rank on the card: the probe and parts 2-7; its report (or
+    its traceback) goes into ``results``. The checkpoints and the host
+    reads' files go under ``work_dir`` (rank 0 writes the shared ones)."""
     import datetime
     import traceback
 
@@ -4246,11 +4492,32 @@ def _sharded_rank(rank: int, n: int, address: str, results) -> None:
         try:
             report = {"rank": rank, "backend": dist.get_backend(),
                       "gloo_cuda": probe_gloo_cuda(device)}
+            work = Path(work_dir)
             report["frames"] = sharded_frames_on_rank(device)
             torch.cuda.empty_cache()
-            report["loop"] = sharded_loop_on_rank(device, {})
+            loop_keep = {"path": work / "sharded_slam_loop.npz"}
+            report["loop"] = sharded_loop_on_rank(device, {}, loop_keep)
             torch.cuda.empty_cache()
             report["overlap"] = sharded_loop_on_rank(device, {"overlap_backend": "force"})
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            svi_keep = {"path": work / "sharded_svi_loop.npz"}
+            report["svi"] = sharded_svi_on_rank(device, svi_keep)
+            report["svi"]["part_seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            report["resume"] = sharded_resume_on_rank(device, loop_keep)
+            report["svi_resume"] = sharded_svi_resume_on_rank(device, svi_keep)
+            report["resume"]["part_seconds"] = time.perf_counter() - t0
+            del svi_keep
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            system = loop_keep["system"]
+            report["host_reads"] = {
+                "sharded": host_reads(system, work / "host_reads_sharded"),
+                "gathered": host_reads(gathered_copy(system, device),
+                                       work / f"host_reads_gathered_rank{rank}"),
+                "seconds": time.perf_counter() - t0}
         finally:
             dist.destroy_process_group()
         results.put(report)
@@ -4259,7 +4526,7 @@ def _sharded_rank(rank: int, n: int, address: str, results) -> None:
         raise
 
 
-def run_sharded_world(n: int, timeout: float) -> list[dict]:
+def run_sharded_world(n: int, timeout: float, work_dir: Path) -> list[dict]:
     """Spawn ``n`` gloo ranks on the one card, as ``tools/bench_scaling``
     spawns its ranks; their reports in rank order. Raises if a rank fails
     or the world outlasts ``timeout``; no rank is left running."""
@@ -4272,7 +4539,8 @@ def run_sharded_world(n: int, timeout: float) -> list[dict]:
     with __import__("socket").socket() as sk:
         sk.bind(("127.0.0.1", 0))
         address = f"127.0.0.1:{sk.getsockname()[1]}"
-    procs = [ctx.Process(target=_sharded_rank, args=(r, n, address, results), daemon=True)
+    procs = [ctx.Process(target=_sharded_rank, args=(r, n, address, results, str(work_dir)),
+                         daemon=True)
              for r in range(n)]
     for p in procs:
         p.start()
@@ -4302,8 +4570,36 @@ def run_sharded_world(n: int, timeout: float) -> list[dict]:
     return [reports[r] for r in range(n)]
 
 
-def run_sharded_frame(device, main_keep: dict, loop: dict, smi: str,
-                      loop_system=None) -> tuple[dict, dict]:
+def checkpoint_comparison(path: Path, ref: Path, prefixes: tuple) -> dict:
+    """The arrays of two checkpoint files whose names start with
+    ``prefixes``, array by array: those that differ in bits, those where an
+    integer differs or a float by more than ``SHARD_POSE_TOL``, and the
+    rows of each ``table__*`` array of ``path``."""
+    import numpy as np
+
+    with np.load(path) as z, np.load(ref) as w:
+        keys = sorted(k for k in set(z.files) | set(w.files) if k.startswith(prefixes))
+        differ, beyond, rows = [], [], set()
+        for k in keys:
+            if k not in z.files or k not in w.files:
+                differ.append(k)
+                beyond.append(k)
+                continue
+            a, b = z[k], w[k]
+            if k.startswith("table__"):
+                rows.add(int(a.shape[0]))
+            if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+                differ.append(k)
+                if (a.dtype != b.dtype or a.shape != b.shape or a.dtype.kind != "f"
+                        or not np.allclose(a, b, rtol=0, atol=SHARD_POSE_TOL, equal_nan=True)):
+                    beyond.append(k)
+    return {"arrays_compared": len(keys), "table_rows": sorted(rows), "differ_in": differ,
+            "beyond_tolerance": beyond}
+
+
+def run_sharded_frame(device, main_keep: dict, loop: dict, smi: str, loop_keep: dict,
+                      svi: dict, svi_keep: dict, svi_counts: dict,
+                      work_dir: Path) -> tuple[dict, dict]:
     """The landmark-sharded frame step (``parallel.mesh.shard_state``) on
     the card, in three parts. 1: one NCCL rank in this process runs
     main_path's 24 frames at configuration (a) on the sharded state and
@@ -4317,8 +4613,19 @@ def run_sharded_frame(device, main_keep: dict, loop: dict, smi: str,
     must launch on each. 4: the same loop with the back-end worker
     (``overlap_backend="force"``, ``__graft_entry__.dryrun_multichip``'s
     last part) on the two ranks, held to ``overlap_backend``'s gates, the
-    ranks the same bits (they fold only what both have). Returns the report
-    and each part's launches."""
+    ranks the same bits (they fold only what both have). 5: the same ranks
+    run ``svi_loop`` (configuration (e)) on the sharded state: the ranks the
+    same bits, the one-card run's keyframes, closures, BA runs, trajectories,
+    velocity and gravity observations (the same bits, or equal integers and
+    poses within SHARD_POSE_TOL), ``svi_loop``'s gates, its launches on
+    each rank. 6: parts 3 and 5 saved their checkpoints at CKPT_FRAME (rank
+    0 wrote): every table holds every row and equals the one-card phases'
+    files array by array; each rank loads the file, shards the state again
+    and resumes, and must record the uninterrupted sharded run's poses. 7:
+    the host reads (cloud, g2o, viewer, the logger's dumps) of part 3's
+    final system equal those of the same state gathered and, where part 3
+    gave ``slam_loop``'s bits, those of the one-card system. Returns the
+    report and each part's launches."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4364,7 +4671,7 @@ def run_sharded_frame(device, main_keep: dict, loop: dict, smi: str,
 
     # 2 and 3. two gloo ranks on the one card
     t0 = time.perf_counter()
-    ranks = run_sharded_world(SHARD_RANKS, timeout=600.0)
+    ranks = run_sharded_world(SHARD_RANKS, timeout=900.0, work_dir=work_dir)
     report["gloo_world_seconds"] = time.perf_counter() - t0
     report["gloo_cuda_probe"] = ranks[0]["gloo_cuda"]
     frames = [r["frames"] for r in ranks]
@@ -4401,11 +4708,11 @@ def run_sharded_frame(device, main_keep: dict, loop: dict, smi: str,
         and np.array_equal(loops[0]["optimised"], loops[1]["optimised"]))
     three["slam_loop"] = {k: loop[k] for k in ("keyframes", "frames_per_s", "ate_recorded_m",
                                                "ate_optimised_m", "accepted_closures")}
-    if loop_system is not None:
-        # reported, not required: float32 sum order may part them
-        three["same_trajectory_bits_as_slam_loop"] = (
-            np.array_equal(loops[0]["raw"], loop_system.trajectory_array)
-            and np.array_equal(loops[0]["optimised"], loop_system.optimized_trajectory()))
+    loop_system = loop_keep["system"]
+    # reported, not required: float32 sum order may part them
+    three["same_trajectory_bits_as_slam_loop"] = (
+        np.array_equal(loops[0]["raw"], loop_system.trajectory_array)
+        and np.array_equal(loops[0]["optimised"], loop_system.optimized_trajectory()))
     report["two_gloo_ranks_loop"] = three
     overlaps = [r["overlap"] for r in ranks]
     four = {k: [lp[k] for lp in overlaps] for k in (
@@ -4420,6 +4727,58 @@ def run_sharded_frame(device, main_keep: dict, loop: dict, smi: str,
     report["two_gloo_ranks_overlap_backend"] = four
     report["schur_shapes"] = sorted({tuple(s) for lp in loops + overlaps
                                      for s in lp["schur_shapes"]})
+    # 5. the stereo-inertial loop on the two ranks
+    svis, svi_ref = [r["svi"] for r in ranks], svi_keep["outcome"]
+    vectors = ("raw", "optimised", "velocity", "gravity_obs_rows")
+    integers = ("keyframes", "stats", "accepted_closures", "posit_rejected_at_frames")
+    five = {k: [sv[k] for sv in svis] for k in (
+        "frames", "part_seconds", "seconds", "frames_per_s", "keyframes", "stats",
+        "accepted_closures", "closure_transform_err_m", "ate_recorded_m", "ate_optimised_m",
+        "ate_recorded_before_first_refusal_m", "posit_rejected_at_frames", "ba_windows",
+        "launches", "checkpoint_seconds_left_out")}
+    five["placements"] = svis[0]["placements"]
+    five["ranks_same_bits"] = all(np.array_equal(svis[0][k], svis[1][k]) for k in vectors)
+    five["svi_loop_integers_equal"] = all(sv[k] == svi_ref[k] for sv in svis for k in integers)
+    five["svi_loop_same_bits"] = five["svi_loop_integers_equal"] and all(
+        np.array_equal(sv[k], svi_ref[k]) for sv in svis for k in vectors)
+    five["pose_max_abs_diff_from_svi_loop"] = max(
+        float(np.abs(sv[k] - svi_ref[k]).max()) for sv in svis for k in ("raw", "optimised"))
+    five["velocity_max_abs_diff_from_svi_loop"] = max(
+        float(np.abs(sv["velocity"] - svi_ref["velocity"]).max()) for sv in svis)
+    five["gravity_max_abs_diff_from_svi_loop"] = max(
+        float(np.abs(sv["gravity_obs_rows"] - svi_ref["gravity_obs_rows"]).max())
+        if sv["gravity_obs_rows"].shape == svi_ref["gravity_obs_rows"].shape else float("inf")
+        for sv in svis)
+    five["svi_loop"] = {k: svi[k] for k in ("keyframes", "frames_per_s", "ate_recorded_m",
+                                            "ate_optimised_m", "accepted_closures")}
+    five["frames_per_s_over_svi_loop"] = [f / svi["frames_per_s"] for f in five["frames_per_s"]]
+    five["svi_loop_launches"] = svi_counts
+    report["two_gloo_ranks_svi_loop"] = five
+    # 6. the checkpoints at CKPT_FRAME, and the resumed ranks
+    six = {"slam_file": checkpoint_comparison(work_dir / "sharded_slam_loop.npz",
+                                              loop_keep["path"], CKPT_STATE_KEYS),
+           "svi_file": checkpoint_comparison(work_dir / "sharded_svi_loop.npz",
+                                             svi_keep["path"], CKPT_SVI_KEYS),
+           "resume": [{k: v for k, v in r["resume"].items() if k != "optimised"}
+                      for r in ranks],
+           "svi_resume": [r["svi_resume"] for r in ranks],
+           "ranks_same_bits": np.array_equal(ranks[0]["resume"]["optimised"],
+                                             ranks[1]["resume"]["optimised"])}
+    report["two_gloo_ranks_checkpoint"] = six
+    # 7. the host reads of part 3's final system
+    t0 = time.perf_counter()
+    one_card = host_reads(loop_system, work_dir / "host_reads_one_card")
+    reads = [r["host_reads"] for r in ranks]
+    seven = {"reads": sorted(one_card), "rank_seconds": [h["seconds"] for h in reads],
+             "one_card_seconds": time.perf_counter() - t0,
+             "cloud_points": int(one_card["cloud/uids"].shape[0]),
+             "g2o_bytes": len(one_card["g2o"]),
+             "ranks_differ_in": host_read_differences(reads[0]["sharded"], reads[1]["sharded"]),
+             "differ_from_gathered": [host_read_differences(h["sharded"], h["gathered"])
+                                      for h in reads],
+             "differ_from_slam_loop": [host_read_differences(h["sharded"], one_card)
+                                       for h in reads]}
+    report["two_gloo_ranks_host_reads"] = seven
     report["seconds"] = time.perf_counter() - t_phase
     emit(report)
 
@@ -4482,8 +4841,65 @@ def run_sharded_frame(device, main_keep: dict, loop: dict, smi: str,
                  "sharded overlap, the worker of one rank")
     require(four["ranks_same_trajectory_bits"],
             "the two ranks' trajectories differ with the back-end worker")
+    # part 5's: the ranks alike, svi_loop's figures, its gates and launches
+    require(five["ranks_same_bits"], "the two ranks' stereo-inertial runs differ")
+    require(five["svi_loop_same_bits"] or (
+        five["svi_loop_integers_equal"]
+        and five["pose_max_abs_diff_from_svi_loop"] <= SHARD_POSE_TOL
+        and five["gravity_max_abs_diff_from_svi_loop"] <= SHARD_POSE_TOL
+        and five["velocity_max_abs_diff_from_svi_loop"] <= SHARD_VELOCITY_TOL),
+        f"the sharded SVI loop parted from svi_loop: integers equal "
+        f"{five['svi_loop_integers_equal']}, poses {five['pose_max_abs_diff_from_svi_loop']}, "
+        f"gravity {five['gravity_max_abs_diff_from_svi_loop']}, velocity "
+        f"{five['velocity_max_abs_diff_from_svi_loop']}")
+    for r, sv in enumerate(svis):
+        require_svi_loop(sv, sv["launches"], f"sharded svi_loop, rank {r}")
+        on_path = FRONTEND_KERNELS + BACKEND_KERNELS + (CLOSURE_KERNEL,)
+        require(all(sv["launches"][k] == svi_counts[k] for k in on_path)
+                and sv["launches"]["stereo_match"] == sv["match_stereo_calls"]
+                and sv["launches"][CLOSURE_KERNEL] == sv["pool_scorings"],
+                f"sharded svi_loop, rank {r}: launches {sv['launches']}, svi_loop's "
+                f"{svi_counts}")
+    # part 6's: whole tables, the one-card files, the resumed ranks
+    for name in ("slam_file", "svi_file"):
+        f = six[name]
+        require(f["table_rows"] == [N_LANDMARKS] and f["arrays_compared"] > 0,
+                f"{name}: table rows {f['table_rows']}")
+        require(not f["beyond_tolerance"],
+                f"{name} differs from the one-card file in {f['beyond_tolerance']}")
+    for r, (res, sres) in enumerate(zip(ranks, six["svi_resume"])):
+        res = res["resume"]
+        st = res["stats"]
+        require(not res["resumed_frames_differ_at"]
+                and res["keyframe_frames"] == res["uninterrupted_keyframe_frames"],
+                f"rank {r}: resumed loop frames {res['resumed_frames_differ_at']} differ, or "
+                f"its keyframes {len(res['keyframe_frames'])} from "
+                f"{len(res['uninterrupted_keyframe_frames'])}")
+        require(res["frames"] == LOOP_FRAMES - CKPT_FRAME and st["closures_accepted"] >= 1
+                and res["closure_transform_err_m"]
+                and max(res["closure_transform_err_m"]) < LOOP_CLOSURE_ERR_M
+                and res["ate_optimised_m"] < LOOP_ATE_BOUND_M,
+                f"rank {r}: resumed loop {st}, closures {res['closure_transform_err_m']} m, "
+                f"ATE {res['ate_optimised_m']} m")
+        require(not sres["resumed_frames_differ_at"] and sres["velocity_at_frame_128_equal"],
+                f"rank {r}: resumed SVI frames {sres['resumed_frames_differ_at']} differ, "
+                f"velocity equal {sres['velocity_at_frame_128_equal']}")
+        launched(res["launches"], FRONTEND_KERNELS, f"resumed sharded loop, rank {r}")
+        launched(sres["launches"], FRONTEND_KERNELS, f"resumed sharded SVI loop, rank {r}")
+    require(six["ranks_same_bits"], "the resumed ranks' trajectories differ")
+    # part 7's: the gathered state's reads; slam_loop's where part 3 gave its bits
+    require(not seven["ranks_differ_in"], f"the ranks' host reads differ in "
+            f"{seven['ranks_differ_in']}")
+    require(not any(seven["differ_from_gathered"]),
+            f"host reads differ from the gathered state's: {seven['differ_from_gathered']}")
+    require(not three["same_trajectory_bits_as_slam_loop"]
+            or not any(seven["differ_from_slam_loop"]),
+            f"host reads differ from slam_loop's: {seven['differ_from_slam_loop']}")
     counts = {"nccl_1": one_counts, "gloo_frames": two["launches"],
-              "gloo_loop": three["launches"], "gloo_overlap": four["launches"]}
+              "gloo_loop": three["launches"], "gloo_overlap": four["launches"],
+              "gloo_svi_loop": five["launches"],
+              "gloo_resume": [r["resume"]["launches"] for r in ranks],
+              "gloo_svi_resume": [r["svi_resume"]["launches"] for r in ranks]}
     return report, counts
 
 
@@ -4604,12 +5020,6 @@ def main() -> int:
     svi_keep = {"path": Path(ckdir.name) / "svi_loop.npz"}
     # the loops save a checkpoint after frame 95 (left out of their times)
     loop, loop_counts = run_slam_loop(device, keep=loop_keep)     # emits its own line
-    # the landmark-sharded frame step: one NCCL rank, then two gloo ranks on
-    # the one card (main_path's frames, then the loop), each part with the
-    # counts set to 0 just before it and read just after
-    sharded, sharded_counts = run_sharded_frame(device, main_keep, loop, smi,
-                                                loop_system=loop_keep["system"])
-    del main_keep
     # 6. the stereo-inertial path: card against CPU, the real-data front at
     #    the VI sensor's size, the bench loop (each with its counts set to 0
     #    just before it and read just after)
@@ -4621,6 +5031,15 @@ def main() -> int:
     loop_keep["report"] = loop
     resume, resume_counts = run_checkpoint_resume(device, loop_keep)
     svi_resume, svi_resume_counts = run_checkpoint_svi(device, svi_keep)
+    # the landmark-sharded frame step: one NCCL rank, then two gloo ranks on
+    # the one card (main_path's frames, the SV loop, the SVI loop, both
+    # resumed from their checkpoints, the host reads), each part with the
+    # counts set to 0 just before it and read just after
+    torch.cuda.empty_cache()
+    sharded, sharded_counts = run_sharded_frame(
+        device, main_keep, loop, smi, loop_keep, svi, svi_keep, svi_counts,
+        work_dir=Path(ckdir.name))
+    del main_keep
     # view_map (offline_tools, below) draws slam_loop's checkpoint
     loop_checkpoint = Path(tools_dir.name) / "slam_loop.npz"
     shutil.copy(loop_keep["path"], loop_checkpoint)
@@ -4748,7 +5167,12 @@ def main() -> int:
                 "gloo_frames_per_rank": [c[k["name"]] for c in sharded_counts["gloo_frames"]],
                 "gloo_loop_per_rank": [c[k["name"]] for c in sharded_counts["gloo_loop"]],
                 "gloo_overlap_per_rank": [c[k["name"]]
-                                          for c in sharded_counts["gloo_overlap"]]},
+                                          for c in sharded_counts["gloo_overlap"]],
+                "gloo_svi_loop_per_rank": [c[k["name"]]
+                                           for c in sharded_counts["gloo_svi_loop"]],
+                "gloo_resume_per_rank": [c[k["name"]] for c in sharded_counts["gloo_resume"]],
+                "gloo_svi_resume_per_rank": [c[k["name"]]
+                                             for c in sharded_counts["gloo_svi_resume"]]},
             "on_path": k["name"] not in OFF_PATH_ENTRIES,
         }
         for extra in ("launch_only_ms", "rel_err_vs_plain", "K", "L", "flops",

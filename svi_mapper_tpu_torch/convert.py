@@ -7,11 +7,16 @@ package can be started from the other's state and compared field by field:
 a caller builds the dictionaries from the JAX pytrees with ``np.asarray``.
 Packed descriptors cross as bit patterns: ``uint32`` on the numpy side,
 ``int32`` with the same bits in the port.
+
+A state that ``parallel.mesh.shard_state`` placed on a ``map`` mesh is
+read with every row (:func:`host_arrays`): a collective, so every rank must
+make the same calls.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import numpy as np
 import torch
@@ -24,12 +29,36 @@ from svi_mapper_tpu_torch.geometry.camera import (
 from svi_mapper_tpu_torch.imu.interpolator import ImuCalibration
 from svi_mapper_tpu_torch.mapping.landmarks import LandmarkTable
 from svi_mapper_tpu_torch.mapping.vocabulary import Vocabulary
-from svi_mapper_tpu_torch.models.frame import FrameState
-from svi_mapper_tpu_torch.ops.descriptors import words_from_numpy, words_to_numpy
+from svi_mapper_tpu_torch.models.frame import FrameState, shards_of
+from svi_mapper_tpu_torch.ops.descriptors import words_from_numpy, words_to_numpy, words_u32
 from svi_mapper_tpu_torch.solvers.pose_graph import PoseGraphEdges
 from svi_mapper_tpu_torch.utils.device import resolve_device
 
 _DESC_FIELDS = ("desc_left_ref", "desc_right_ref", "desc_left_last", "desc_hist")
+
+
+def host_arrays(*tensors) -> list[np.ndarray]:
+    """Numpy copies of tensors with every element: the fields of a sharded
+    table gathered over their mesh (``parallel.mesh.host_arrays``), a plain
+    tensor (or an array) as it is. On a sharded state every rank must make
+    the call."""
+    if "torch.distributed.tensor" in sys.modules:   # a DTensor may exist
+        from svi_mapper_tpu_torch.parallel.mesh import host_arrays as gathered
+
+        return gathered(*tensors)
+    return [t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+            for t in tensors]
+
+
+def write_on_rank0(state: FrameState, write) -> None:
+    """Call ``write()``, the file write of a host read of ``state``: on one
+    device at once; on a sharded state on rank 0 alone, every rank calling
+    this and all returning together (``LandmarkShards.write_on_rank0``)."""
+    shards = shards_of(state)
+    if shards is None:
+        write()
+    else:
+        shards.write_on_rank0(write)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -71,12 +100,11 @@ def table_from_numpy(d: dict, device=None) -> LandmarkTable:
 
 
 def table_to_numpy(table: LandmarkTable) -> dict:
-    out = {}
-    for f in dataclasses.fields(LandmarkTable):
-        t = getattr(table, f.name)
-        out[f.name] = (words_to_numpy(t) if f.name in _DESC_FIELDS
-                       else t.detach().cpu().numpy())
-    return out
+    """Every field with every row (one gather for a sharded table: every
+    rank must call it)."""
+    names = [f.name for f in dataclasses.fields(LandmarkTable)]
+    arrays = host_arrays(*[getattr(table, n) for n in names])
+    return {n: words_u32(a) if n in _DESC_FIELDS else a for n, a in zip(names, arrays)}
 
 
 _STATE_SCALARS = ("next_uid", "frame_idx", "instability")
@@ -94,8 +122,12 @@ def state_from_numpy(d: dict, device=None) -> FrameState:
 
 
 def state_to_numpy(state: FrameState) -> dict:
-    out = {k: getattr(state, k).detach().cpu().numpy() for k in _STATE_POSES}
-    out.update({k: np.int32(int(getattr(state, k))) for k in _STATE_SCALARS})
+    """The state with every row of its table (a sharded state's read is a
+    collective: every rank must call it)."""
+    names = _STATE_POSES + _STATE_SCALARS
+    arrays = host_arrays(*[getattr(state, k) for k in names])
+    out = dict(zip(_STATE_POSES, arrays))
+    out.update({k: np.int32(a) for k, a in zip(_STATE_SCALARS, arrays[len(_STATE_POSES):])})
     out["table"] = table_to_numpy(state.table)
     return out
 

@@ -242,14 +242,17 @@ def export_html(
 
 def snapshot_tracker(tracker) -> dict:
     """Collect viewer inputs from a live tracker/SLAM system of the port
-    (its tensors are read to the host)."""
+    (its tensors are read to the host, every row of a sharded table: then
+    every rank must call it, a gather)."""
+    from svi_mapper_tpu_torch.convert import host_arrays
+
     t = tracker.state.table
-    active = t.active.cpu().numpy()
+    active, pos_w = host_arrays(t.active, t.pos_w)
     out = {
         "trajectory": (tracker.optimized_trajectory()
                        if hasattr(tracker, "optimized_trajectory")
                        else tracker.trajectory_array),
-        "landmarks": t.pos_w.cpu().numpy()[active],
+        "landmarks": pos_w[active],
     }
     if tracker.outputs:   # not carried through checkpoints
         out["hud"] = {

@@ -28,6 +28,14 @@ closure database had a native index and whether the system ran the closure
 worker, and a loaded system gets both back, the index rebuilt from the
 stored pools. The overlapped back-end is not recorded (as in the JAX
 package): a loaded system runs the back-end synchronously.
+
+A tracker whose state ``parallel.mesh.shard_state`` placed on a ``map``
+mesh saves the same file, with every row of the table: every rank calls
+:func:`save_checkpoint` (the table is gathered, a collective), rank 0
+writes, and all ranks return once the file is whole. :func:`load_checkpoint`
+returns the state on one device; putting it back on a mesh is the caller's
+``shard_state``, as in the JAX package, where saving a sharded state is a
+gather and re-sharding on load is the caller's placement.
 """
 
 from __future__ import annotations
@@ -95,7 +103,9 @@ def save_checkpoint(path: str | Path, tracker) -> None:
     The checkpoint is self-contained: camera calibration and tracking
     parameters ride along, so resuming needs only the file. Reads the
     tracker's device state to the host, after waiting for the worker
-    threads' pending work.
+    threads' pending work. For a sharded state every rank must call it:
+    the table is gathered, rank 0 writes the file, and the ranks return
+    together.
     """
     if hasattr(tracker, "flush_closures"):
         tracker.flush_closures(block=True)   # async searches must land first
@@ -219,7 +229,7 @@ def save_checkpoint(path: str | Path, tracker) -> None:
                 [words_u32(k.descriptors) for k in kfs], axis=0)
 
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
-    np.savez_compressed(path, **arrays)
+    convert.write_on_rank0(tracker.state, lambda: np.savez_compressed(path, **arrays))
 
 
 def _table_dict(fresh: dict, arrays: dict) -> dict:

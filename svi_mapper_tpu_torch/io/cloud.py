@@ -24,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-from svi_mapper_tpu_torch.ops.descriptors import words_to_numpy, words_u32
+from svi_mapper_tpu_torch.ops.descriptors import words_u32
 from svi_mapper_tpu_torch.utils.errors import InvalidFileError
 
 FORMAT_VERSION = 1
@@ -101,23 +101,28 @@ def load_cloud(path: str | Path) -> KeyframeCloud:
 def cloud_from_slam_state(state, keyframe_id: int, frame_idx: int) -> KeyframeCloud:
     """Snapshot the visible optimal landmarks of a live ``FrameState``
     (the cloud the reference writes per keyframe, CTrackerGT.cpp:222-250).
-    Reads the state to the host."""
+    Reads the state to the host, every row of a sharded table: then every
+    rank must call it (a gather)."""
+    from svi_mapper_tpu_torch.convert import host_arrays
+
     t = state.table
-    sel = (t.active & t.is_optimal).cpu().numpy()
-    T_wc = state.T_wc.cpu().numpy()
-    pos_w = t.pos_w.cpu().numpy()[sel]
+    active, optimal, T_wc, pos_w, uv_l, disp, uid, desc = host_arrays(
+        t.active, t.is_optimal, state.T_wc, t.pos_w, t.uv_left_last,
+        t.disparity_last, t.uid, t.desc_left_ref)
+    sel = active & optimal
+    pos_w = pos_w[sel]
     p_cam = pos_w @ T_wc[:3, :3].T + T_wc[:3, 3]
-    uv_l = t.uv_left_last.cpu().numpy()[sel]
-    disp = t.disparity_last.cpu().numpy()[sel]
+    uv_l = uv_l[sel]
+    disp = disp[sel]
     uv_r = np.stack([uv_l[:, 0] - disp, uv_l[:, 1]], axis=-1)
     return KeyframeCloud(
         keyframe_id=keyframe_id,
         frame_idx=frame_idx,
         T_wc=T_wc,
-        uids=t.uid.cpu().numpy()[sel].astype(np.int64),
+        uids=uid[sel].astype(np.int64),
         points_w=pos_w,
         points_cam=p_cam,
         uv_left=uv_l,
         uv_right=uv_r,
-        descriptors=words_to_numpy(t.desc_left_ref)[sel],
+        descriptors=words_u32(desc)[sel],
     )

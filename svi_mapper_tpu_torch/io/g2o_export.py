@@ -137,10 +137,14 @@ def load_g2o(path: str | Path):
 def snapshot_slam(slam, path: str | Path, include_landmarks: bool = True) -> None:
     """Write the live SLAM graph (keyframe chain + accepted closures +
     active landmarks) — the role of the reference's per-optimization
-    ``keyframes_*-*.g2o`` snapshots."""
+    ``keyframes_*-*.g2o`` snapshots. On a sharded state every rank must
+    call it: the landmarks are gathered, rank 0 writes, and the ranks
+    return together."""
     kfs = slam.slam_keyframes
     if not kfs:
         return
+    from svi_mapper_tpu_torch import convert
+
     T = np.stack([k.T_wc for k in kfs])
     edges = []
     for k in range(1, len(kfs)):
@@ -150,7 +154,7 @@ def snapshot_slam(slam, path: str | Path, include_landmarks: bool = True) -> Non
     lm = uid = None
     if include_landmarks:
         t = slam.state.table
-        sel = t.active.cpu().numpy()
-        lm = t.pos_w.cpu().numpy()[sel]
-        uid = t.uid.cpu().numpy()[sel]
-    save_g2o(path, T, edges, landmarks=lm, landmark_ids=uid)
+        sel, pos_w, uids = convert.host_arrays(t.active, t.pos_w, t.uid)
+        lm, uid = pos_w[sel], uids[sel]
+    convert.write_on_rank0(slam.state, lambda: save_g2o(
+        path, T, edges, landmarks=lm, landmark_ids=uid))

@@ -27,7 +27,10 @@ output counts. Every flag read on the host is then the same on every rank,
 and every sum of floats runs over the same rows in the same order as on
 one device, so any mesh size gives the one-device bits. The state comes
 back with its placements; the outputs are plain tensors, the same on every
-rank. A state on one device takes none of these calls.
+rank. A state on one device takes none of these calls. The stereo-inertial
+step (:func:`process_frame_svi`, :func:`process_chunk_svi`) unwraps the
+same way; its IMU prior, fallback pose and velocity come from the
+replicated pose, so it adds no collective.
 """
 
 from __future__ import annotations
@@ -606,20 +609,51 @@ def process_frame_svi(
     interval's IMU samples into a pose prior from the carried velocity,
     run the visual step with the IMU dead-reckoning fallback, and update
     the velocity from the accepted pose delta. No host read beyond
-    :func:`process_frame`'s. Returns ``(state, output, velocity)``."""
+    :func:`process_frame`'s. Returns ``(state, output, velocity)``.
+
+    A sharded state is unwrapped once and rewrapped once, as in
+    :func:`process_frame`: the IMU prior, its fallback and the velocity are
+    computed from the replicated pose on every rank, so they are the same
+    bits everywhere and the step needs no collective beyond
+    :func:`process_frame`'s."""
     dev = resolve_device(device)
+    shards = shards_of(state)
+    if shards is not None:
+        state = shards.local_state(state)
+    state, out, vel = _svi_step(
+        state, img_left, img_right, cam, params, dts, omega, accel, valid,
+        velocity, R_ci, bias_gyro, bias_accel, do_landmark_opt=do_landmark_opt,
+        equalize=equalize, rect_maps=rect_maps, device=dev, shards=shards)
+    if shards is not None:
+        state = shards.wrap_state(state)
+    return state, out, vel
+
+
+def _svi_step(state, img_left, img_right, cam, params, dts, omega, accel, valid,
+              velocity, R_ci, bias_gyro, bias_accel, *, do_landmark_opt, equalize,
+              rect_maps, device, shards):
+    """The body of :func:`process_frame_svi` on plain tensors: the whole
+    table, or this rank's rows of it with ``shards`` (replicated inputs
+    given as DTensors are read locally)."""
+    if shards is not None:
+        (img_left, img_right, dts, omega, accel, valid, velocity, R_ci, bias_gyro,
+         bias_accel) = (shards.local(x) for x in (
+             img_left, img_right, dts, omega, accel, valid, velocity, R_ci, bias_gyro,
+             bias_accel))
+        if rect_maps is not None:
+            rect_maps = tuple(shards.local(m) for m in rect_maps)
     mlx = mly = mrx = mry = None
     if rect_maps is not None:
         mlx, mly, mrx, mry = rect_maps
-    l = svi_preprocess(_to_image(img_left, dev), equalize, mlx, mly)
-    r = svi_preprocess(_to_image(img_right, dev), equalize, mrx, mry)
+    l = svi_preprocess(_to_image(img_left, device), equalize, mlx, mly)
+    r = svi_preprocess(_to_image(img_right, device), equalize, mrx, mry)
     T = state.T_wc
     T_prior, T_fb, _ = svi_prior(T, dts, omega, accel, valid, velocity,
                                  R_ci, bias_gyro, bias_accel)
-    state2, out = process_frame(
-        state, l, r, cam, params, T_prior,
+    state2, out = _frame_step(
+        state, l, r, cam, params, T_prior, use_gt_pose=False,
         use_external_prior=True, do_landmark_opt=do_landmark_opt,
-        T_fallback=T_fb, device=dev,
+        T_fallback=T_fb, device=device, shards=shards,
     )
     vel = svi_velocity(state2.T_wc, T, torch.sum(dts * valid), velocity)
     return state2, out, vel
@@ -652,9 +686,18 @@ def process_chunk_svi(
     landmark-opt cadence from the carried frame index (one host read per
     chunk).
 
+    A sharded state is unwrapped once and rewrapped once, and its
+    snapshots come back split along their landmark axis (1), as
+    :func:`process_chunk` returns them.
+
     Returns ``(state, velocity, outputs, snapshots)``.
     """
     dev = resolve_device(device)
+    shards = shards_of(state)
+    if shards is not None:
+        state = shards.local_state(state)
+        imgs_left, imgs_right, dts, omega, accel, valid = (
+            shards.local(x) for x in (imgs_left, imgs_right, dts, omega, accel, valid))
     imgs_left = _to_image(imgs_left, dev)
     imgs_right = _to_image(imgs_right, dev)
     every = max(1, landmark_opt_every)
@@ -662,13 +705,19 @@ def process_chunk_svi(
     vel = velocity0
     outs, snaps = [], []
     for i in range(imgs_left.shape[0]):
-        state, out, vel = process_frame_svi(
+        state, out, vel = _svi_step(
             state, imgs_left[i], imgs_right[i], cam, params,
             dts[i], omega[i], accel[i], valid[i], vel, R_ci,
             bias_gyro, bias_accel,
             do_landmark_opt=((idx0 + i) % every) == 0,
-            equalize=equalize, rect_maps=rect_maps, device=dev,
+            equalize=equalize, rect_maps=rect_maps, device=dev, shards=shards,
         )
         outs.append(out)
         snaps.append(snapshot_of(state.table))
-    return state, vel, _stack(outs), _stack(snaps)
+    snaps = _stack(snaps)
+    if shards is not None:
+        state = shards.wrap_state(state)
+        snaps = KeyframeSnapshot(**{
+            f.name: shards.wrap_rows(getattr(snaps, f.name), dim=1)
+            for f in dataclasses.fields(KeyframeSnapshot)})
+    return state, vel, _stack(outs), snaps

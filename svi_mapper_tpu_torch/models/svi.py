@@ -20,6 +20,12 @@ step (``models.frame.process_frame_svi``); with the back-end off they give
 the same bits. With the back-end on, the chunked path runs the keyframe tail
 at the chunk boundary, as ``SLAMSystem.process_many`` does.
 
+The tracker also runs on a state ``parallel.mesh.shard_state`` placed on a
+``map`` mesh (every rank drives the same frames and samples): the IMU reads
+the replicated pose, so every rank computes the same prior, fallback and
+velocity bits, and every flag the step branches on is the same on every
+rank.
+
 ``SLAMSystem``'s options pass through ``**kwargs``: with ``async_closure``
 or ``overlap_backend`` the gravity observations are still recorded on the
 tracker thread, once per keyframe before its event is handed over, and the
@@ -127,7 +133,7 @@ class StereoInertialTracker(SLAMSystem):
                                      self.equalize, mlx, mly)
         R = frame_mod.svi_preprocess(frame_mod._to_image(img_right, dev),
                                      self.equalize, mrx, mry)
-        T = self.state.T_wc
+        T = self._local_state()[0].T_wc    # replicated on a sharded state
         rotate = imu_mod.matvec_ordered
         w = rotate(self._R_ci, self._dev(np.asarray(omega, np.float32)) - self._bias_gyro)
         a = imu_mod.gravity_filtered_accel(
@@ -218,9 +224,9 @@ class StereoInertialTracker(SLAMSystem):
         # and the robocentric world shift change the gauge — differencing
         # across a rebase would absorb the shift into a huge spurious
         # velocity that poisons the next IMU prior
-        self.velocity = frame_mod.svi_velocity(state2.T_wc, T_before, dt,
-                                               self.velocity)
         self.state = state2
+        self.velocity = frame_mod.svi_velocity(self._local_state()[0].T_wc, T_before,
+                                               dt, self.velocity)
         return self._record_frame(out, t0)
 
     def _record_frame(self, out, t0: float):

@@ -19,12 +19,19 @@ state on one device those calls are not made. Every exchange is an
 over NCCL and over gloo, whose CUDA support covers ``all_reduce``. The
 sharded BA reduces its Schur system the same way
 (:mod:`parallel.sharded_ba`).
+
+A host read of a sharded state (a checkpoint, a cloud, a g2o snapshot,
+the viewer's and the loggers' dumps) goes through :func:`host_arrays`,
+which gathers every row: a collective that every rank must make. Where
+such a read writes a file, rank 0 writes it and the ranks leave together
+(:meth:`LandmarkShards.write_on_rank0`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
@@ -87,6 +94,34 @@ def _plain(x):
     return x.to_local() if isinstance(x, DTensor) else x
 
 
+def host_arrays(*tensors) -> list[np.ndarray]:
+    """Numpy copies of ``tensors`` with every element: a plain tensor's
+    own (an array as it is), a ``Replicate()`` DTensor's local copy, and for a ``Shard(d)``
+    DTensor every rank's rows in rank order, through ONE
+    :meth:`LandmarkShards.gather` for all the sharded ones of a mesh and
+    axis (every bit kept, NaN and -0.0 too). Never one rank's shard alone.
+
+    A sharded read is a collective: every rank of the mesh must make it,
+    with the same tensors in the same order, or the ranks that do wait out
+    the group's timeout."""
+    out: list = [None] * len(tensors)
+    groups: dict = {}
+    for i, x in enumerate(tensors):
+        if isinstance(x, DTensor) and x.placements[0].is_shard():
+            key = (id(x.device_mesh), x.placements[0].dim)
+            groups.setdefault(key, []).append(i)
+        elif torch.is_tensor(x):
+            out[i] = _plain(x).detach().cpu().numpy()
+        else:
+            out[i] = np.asarray(x)
+    for (_, dim), idx in groups.items():
+        shards = LandmarkShards(tensors[idx[0]].device_mesh)
+        full = shards.gather(*[tensors[i].to_local().detach() for i in idx], dim=dim)
+        for i, t in zip(idx, full):
+            out[i] = t.cpu().numpy()
+    return out
+
+
 class LandmarkShards:
     """This rank's view of a ``map``-sharded landmark table: which rows it
     holds, and the collectives the frame step calls where it crosses them.
@@ -137,6 +172,23 @@ class LandmarkShards:
             for f in dataclasses.fields(FrameState) if f.name != "table"},
             table=table)
 
+    def write_on_rank0(self, write) -> None:
+        """Call ``write()`` (a file write) on rank 0 alone; every rank must
+        call this, and all return together once the file is whole, so a
+        rank that reads it next finds it. One ``all_reduce`` carries rank
+        0's outcome: if its write raised, every rank raises."""
+        err = None
+        if self.rank == 0:
+            try:
+                write()
+            except Exception as e:  # noqa: BLE001  (re-raised below, after the ranks meet)
+                err = e
+        failed = self.any(torch.tensor([err is not None], device=self.mesh.device_type))
+        if err is not None:
+            raise err
+        if bool(failed):
+            raise RuntimeError("rank 0 of the map mesh failed to write its file")
+
     def offset(self, rows: int) -> int:
         """The global index of this rank's first row, ``rows`` per rank."""
         return self.rank * rows
@@ -185,8 +237,10 @@ class LandmarkShards:
         the result has the rows' exact bits (a float's sign of zero and its
         NaNs included)."""
         moved = [t.movedim(dim, 0).contiguous() for t in tensors]
-        parts = [t.view(torch.uint8).reshape(-1) if t.dtype != torch.bool
-                 else t.to(torch.uint8).reshape(-1) for t in moved]
+        # flattened before the byte view: a contiguous tensor with a
+        # dimension of size 1 may keep a stride other than 1 there
+        parts = [(t.to(torch.uint8) if t.dtype == torch.bool else t).reshape(-1)
+                 .view(torch.uint8) for t in moved]
         sizes = [p.numel() for p in parts]
         buf = torch.zeros((self.world, sum(sizes)), dtype=torch.uint8,
                           device=tensors[0].device)

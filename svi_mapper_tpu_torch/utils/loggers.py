@@ -7,6 +7,12 @@ IMU input, and the KITTI-format trajectory. :class:`RunLogger` recreates
 them as plain-text files with the same roles and the JAX package's line
 formats; attach one to a tracker via :func:`attach` and everything is
 written incrementally from the per-frame outputs the host already holds.
+
+On a tracker whose state ``parallel.mesh.shard_state`` placed on a ``map``
+mesh, every rank attaches and finalizes: the per-frame outputs are the same
+on every rank and rank 0 writes them, and :func:`finalize` gathers the
+table on every rank (a collective) and returns once rank 0's dumps are
+written.
 """
 
 from __future__ import annotations
@@ -18,20 +24,40 @@ import torch
 
 
 def _np(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    """A host copy; a replicated DTensor's local one (reads no other rank)."""
+    if not torch.is_tensor(a):
+        return np.asarray(a)
+    from svi_mapper_tpu_torch.convert import host_arrays
+
+    return host_arrays(a)[0]
+
+
+class _Discard:
+    """The file of a logger that does not write (a rank other than 0)."""
+
+    def write(self, text: str) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 class RunLogger:
-    """Per-run text logs under ``log_dir`` (ref CLogger targets logs/*.txt)."""
+    """Per-run text logs under ``log_dir`` (ref CLogger targets logs/*.txt).
+    With ``write=False`` it opens no file and drops every line (the ranks
+    other than 0 of a sharded run)."""
 
-    def __init__(self, log_dir: str | Path):
+    def __init__(self, log_dir: str | Path, write: bool = True):
         self.dir = Path(log_dir)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.write = write
+        if write:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self._files: dict[str, object] = {}
 
     def _f(self, name: str):
         if name not in self._files:
-            self._files[name] = open(self.dir / f"{name}.txt", "w")
+            self._files[name] = (open(self.dir / f"{name}.txt", "w") if self.write
+                                 else _Discard())
         return self._files[name]
 
     # --- per-frame loggers -------------------------------------------------
@@ -75,11 +101,14 @@ class RunLogger:
     def final_landmarks(self, table) -> None:
         """Final landmark dumps (roles of CLogLandmarkFinal and
         CLogLandmarkFinalOptimized: all vs accepted-optimal). Reads the
-        table to the host."""
-        active = _np(table.active)
-        uid = _np(table.uid)
-        pos = _np(table.pos_w)
-        opt = _np(table.is_optimal)
+        table to the host, every row of a sharded table: then every rank
+        must call it (a gather)."""
+        from svi_mapper_tpu_torch.convert import host_arrays
+
+        self._final_landmarks(*host_arrays(table.active, table.uid, table.pos_w,
+                                           table.is_optimal))
+
+    def _final_landmarks(self, active, uid, pos, opt) -> None:
         f_all = self._f("landmarks_final")
         f_opt = self._f("landmarks_final_optimized")
         for i in np.flatnonzero(active):
@@ -112,8 +141,12 @@ def attach(tracker, log_dir: str | Path) -> RunLogger:
     """Wrap a tracker's ``process`` (and ``process_many``) so every frame is
     logged; returns the logger (call ``finalize(tracker, logger)`` or use it
     as a context). ``next_uid`` of the landmark-creation log is read from
-    the live state, once per frame that created landmarks."""
-    logger = RunLogger(log_dir)
+    the live state, once per frame that created landmarks. On a sharded
+    tracker only rank 0's logger writes."""
+    from svi_mapper_tpu_torch.models.frame import shards_of
+
+    shards = shards_of(tracker.state)
+    logger = RunLogger(log_dir, write=shards is None or shards.rank == 0)
     orig = tracker.process
     orig_many = getattr(tracker, "process_many", None)
 
@@ -122,7 +155,7 @@ def attach(tracker, log_dir: str | Path) -> RunLogger:
         logger.trajectory_pose(idx, out.T_wc)
         if int(out.n_new):
             logger.landmarks_created(idx, int(out.n_new),
-                                     int(tracker.state.next_uid))
+                                     int(_np(tracker.state.next_uid)))
         logger.epipolar(idx, int(out.n_tracked),
                         int(out.n_active) - int(out.n_tracked))
 
@@ -145,8 +178,19 @@ def attach(tracker, log_dir: str | Path) -> RunLogger:
 
 
 def finalize(tracker, logger: RunLogger) -> None:
-    """Write the end-of-run dumps and close the files."""
-    logger.final_landmarks(tracker.state.table)
-    if tracker.trajectory:
-        logger.kitti_trajectory(np.stack([_np(T) for T in tracker.trajectory]))
+    """Write the end-of-run dumps and close the files. On a sharded tracker
+    every rank must call it: the table is gathered, rank 0 writes, and the
+    ranks return together once the files are closed."""
+    from svi_mapper_tpu_torch import convert
+
+    t = tracker.state.table
+    rows = convert.host_arrays(t.active, t.uid, t.pos_w, t.is_optimal)
+
+    def write() -> None:
+        logger._final_landmarks(*rows)
+        if tracker.trajectory:
+            logger.kitti_trajectory(np.stack([_np(T) for T in tracker.trajectory]))
+        logger.close()
+
+    convert.write_on_rank0(tracker.state, write)
     logger.close()

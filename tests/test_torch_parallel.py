@@ -5,12 +5,16 @@ mesh; one rank against ``bundle_adjust`` bit for bit; ``shard_ba_inputs``
 against the slices the sharded BA cuts; the landmark-sharded frame step
 (one frame against the JAX package's, a chunked corridor and
 ``SLAMSystem`` against the port's unsharded run, bit for bit with one
-rank); the pod mesh, the state placements, and the bring-up's no-op.
-Mirrors ``tests/test_distributed_multiprocess.py`` and
-``tests/test_parallel.py``. Each world (2 ranks, 1 rank) is started once
-for the module.
+rank); the stereo-inertial tracker on the sharded state against the
+unsharded port and against the JAX package's tracker on its 8-device CPU
+mesh; every host read of a sharded state (checkpoint and resume, cloud,
+g2o, viewer, loggers) against the same read of the state gathered; the
+pod mesh, the state placements, and the bring-up's no-op. Mirrors
+``tests/test_distributed_multiprocess.py`` and ``tests/test_parallel.py``.
+Each world (2 ranks, 1 rank) is started once for the module.
 """
 
+import dataclasses
 import os
 import socket
 import subprocess
@@ -66,14 +70,103 @@ def _problem(L: int, noise: float, seed: int, weighted: bool = False) -> dict:
 PROBLEMS = {"noisy": (64, 0.3), "pad101": (101, 0.0), "weighted": (101, 0.3)}
 
 
+# test_torch_svi.py's frames and IMU blocks at 512 x 256, first 8 frames; a
+# table of 128 landmarks (64 rows a gloo rank, 16 a JAX device) keeps the
+# CPU run short
+SVI_FRAMES, SVI_CAPACITY = 8, 128
+
+
 @pytest.fixture(scope="module")
-def problems(tmp_path_factory):
+def svi_data():
+    from test_torch_svi import make_data
+
+    return make_data(SVI_FRAMES)
+
+
+def _svi_params(base):
+    """test_torch_svi.py's parameters (its 0.2 m keyframe baseline) on a
+    table of ``SVI_CAPACITY``."""
+    from test_torch_svi import _params
+
+    return dataclasses.replace(_params(base), max_landmarks=SVI_CAPACITY,
+                               max_detections=SVI_CAPACITY)
+
+
+def _svi_arrays(data) -> dict:
+    """``svi.npz`` for the worker: the frames, the IMU blocks zero-padded to
+    10 samples with their counts, the port's camera, the calibration and
+    the parameters' changes (numpy only)."""
+    from svi_mapper_tpu_torch import convert
+    from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
+
+    n = np.array([len(b[0]) for b in data["blocks"]])
+    pad = lambda a, shape: np.concatenate([a, np.zeros(shape, np.float32)])  # noqa: E731
+    out = {"L": np.stack([f[0] for f in data["frames"]]).astype(np.float32),
+           "R": np.stack([f[1] for f in data["frames"]]).astype(np.float32), "n": n,
+           "dts": np.stack([pad(b[0], (10 - len(b[0]),)) for b in data["blocks"]]),
+           "omega": np.stack([pad(b[1], (10 - len(b[1]), 3)) for b in data["blocks"]]),
+           "accel": np.stack([pad(b[2], (10 - len(b[2]), 3)) for b in data["blocks"]])}
+    for eye, d in convert.camera_to_numpy(data["cam"]).items():
+        out.update({f"cam/{eye}/{k}": np.asarray(v) for k, v in d.items()})
+    for k in ("R_imu_to_world", "bias_gyro", "bias_accel", "noise_gyro", "noise_accel",
+              "n_samples"):
+        out[f"calib/{k}"] = np.asarray(getattr(data["calib"], k))
+    changed = _svi_params(DEFAULT_PARAMS)
+    for f in ("max_landmarks", "max_detections", "keyframe_translation_m2",
+              "keyframe_rotation_rad2"):
+        out[f"params/{f}"] = np.asarray(getattr(changed, f))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_svi(svi_data):
+    """The JAX package's ``StereoInertialTracker`` on its 8-device CPU mesh
+    (``shard_state(state, make_map_mesh(8))``): frame 0 through
+    ``process_imu``, frames 1-7 through ``process_imu_samples``; its
+    per-frame outputs, its keyframe frames, the sharding of its table, and
+    its state before each frame (the lock step's starting points)."""
+    from svi_mapper_tpu.config import DEFAULT_PARAMS as JPARAMS
+    from svi_mapper_tpu.models.svi import StereoInertialTracker as JTracker
+    from svi_mapper_tpu.parallel import mesh as mesh_mod
+    from test_torch_svi import _jax_svi_dict
+
+    frames, blocks = svi_data["frames"], svi_data["blocks"]
+    jt = JTracker(svi_data["jcam"], svi_data["calib"], _svi_params(JPARAMS),
+                  equalize=False, enable_loop_closure=False, enable_local_ba=False)
+    jt.state = mesh_mod.shard_state(jt.state, mesh_mod.make_map_mesh(8))
+    before = [_jax_svi_dict(jt)]
+    outs = [jt.process_imu(*frames[0], blocks[0][1][0], blocks[0][2][0],
+                           float(blocks[0][0][0]))]
+    for i in range(1, SVI_FRAMES):
+        before.append(_jax_svi_dict(jt))
+        outs.append(jt.process_imu_samples(*frames[i], *blocks[i]))
+    return {"outs": outs, "before": before,
+            "keyframe_frames": [k.frame_idx for k in jt.slam_keyframes],
+            "spec": str(jt.state.table.pos_w.sharding.spec)}
+
+
+def _lock_arrays(before: list) -> dict:
+    """The lock step's states for ``svi.npz``: ``lock/<i>/...`` per frame."""
+    out = {}
+    for i, d in enumerate(before):
+        st = dict(d["state"])
+        out.update({f"lock/{i}/table/{k}": np.asarray(v) for k, v in st.pop("table").items()})
+        out.update({f"lock/{i}/state/{k}": np.asarray(v) for k, v in st.items()})
+        out.update({f"lock/{i}/{k}": np.asarray(d[k]) for k in ("velocity", "gravity_obs",
+                                                                 "T_cam_imu")})
+    return out
+
+
+@pytest.fixture(scope="module")
+def problems(tmp_path_factory, svi_data, jax_svi):
     path = tmp_path_factory.mktemp("problem") / "problems.npz"
     arrays = {}
     for name, (L, noise) in PROBLEMS.items():
         arrays.update({f"{name}/{k}": v for k, v in
                        _problem(L, noise, seed=7, weighted=name == "weighted").items()})
     np.savez(path, **arrays)
+    np.savez(path.with_name("svi.npz"), **_svi_arrays(svi_data),
+             **_lock_arrays(jax_svi["before"]))
     return path
 
 
@@ -88,6 +181,8 @@ def world1(problems, tmp_path_factory):
 
 
 def _run_world(n: int, problems: Path, out_dir: Path) -> list[dict]:
+    """The ranks' ``rank<r>.npz``, with the world's directory under
+    ``"dir"`` (the checkpoints the ranks saved are there)."""
     address = f"127.0.0.1:{_free_port()}"
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     procs = [subprocess.Popen(
@@ -105,7 +200,7 @@ def _run_world(n: int, problems: Path, out_dir: Path) -> list[dict]:
                 p.kill()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"OK {r}" in out, f"rank {r} failed:\n{out[-3000:]}"
-    return [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(n)]
+    return [dict(np.load(out_dir / f"rank{r}.npz"), dir=out_dir) for r in range(n)]
 
 
 def _jax_sharded(p: dict):
@@ -299,17 +394,184 @@ def test_shard_state_rejects_uneven_capacity(world2, world1):
     assert str(world1[0]["odd_capacity_error"]) == ""
 
 
-@pytest.mark.parametrize("part", ["one_frame", "chunk", "slam", "writes", "moved"])
+@pytest.mark.parametrize("part", ["one_frame", "chunk", "slam", "writes", "moved", "svi"])
 def test_one_rank_frame_step_gives_unsharded_bits(world1, part):
     """On a one-rank mesh every collective of the sharded step reduces one
-    operand: the frame, the chunked corridor and ``SLAMSystem`` give the
-    unsharded run's bits in every output and table field."""
+    operand: the frame, the chunked corridor, ``SLAMSystem`` and the
+    stereo-inertial tracker give the unsharded run's bits in every output
+    and table field."""
     (r0,) = world1
     keys = [k for k in r0 if k.startswith(f"{part}/sharded/")]
     assert keys
     for key in keys:
         ref = key.replace("/sharded/", "/ref/")
         assert np.array_equal(r0[key], r0[ref], equal_nan=True), key
+
+
+SVI_INT_OUTPUTS = INT_OUTPUTS + ("keyframe_frames",)
+
+
+@pytest.mark.parametrize("variant", ["svi", "svi_equalize"])
+def test_two_rank_svi_matches_unsharded(world2, variant):
+    """``StereoInertialTracker`` on the sharded state over 2 gloo ranks
+    (``process_imu`` on frame 0, ``process_imu_samples`` on frame 1,
+    ``process_many_imu(chunk=3)`` on frames 2-7; as is and with
+    ``equalize=True``) against the unsharded port in the same rank: every
+    integer output, the keyframe frames and every integer table field
+    equal; poses within 1e-4 and the velocity within 1e-3 m/s (the pose
+    solve's sums may run in another order on the CPU; the velocity is a
+    pose difference over 5-50 ms); both ranks the same bits."""
+    r0, r1 = world2
+    for key in [k for k in r0 if k.startswith(f"{variant}/sharded/")]:
+        assert np.array_equal(r0[key], r1[key]), key
+    assert r0[f"{variant}/sharded/posit_ok"][1:].all()
+    assert r0[f"{variant}/sharded/keyframe_frames"].size >= 1
+    for f in SVI_INT_OUTPUTS:
+        assert np.array_equal(r0[f"{variant}/sharded/{f}"], r0[f"{variant}/ref/{f}"]), f
+    for f in INT_TABLE:
+        assert np.array_equal(r0[f"{variant}/sharded/table/{f}"],
+                              r0[f"{variant}/ref/table/{f}"]), f
+    assert np.abs(r0[f"{variant}/sharded/T_wc"] - r0[f"{variant}/ref/T_wc"]).max() <= 1e-4
+    assert np.abs(r0[f"{variant}/sharded/gravity_obs"]
+                  - r0[f"{variant}/ref/gravity_obs"]).max() <= 1e-4
+    assert np.abs(r0[f"{variant}/sharded/velocity"]
+                  - r0[f"{variant}/ref/velocity"]).max() <= 1e-3
+
+
+def test_two_rank_svi_matches_jax_free_running(world2, jax_svi):
+    """The sharded port (2 gloo ranks; frames 2-7 through
+    ``process_many_imu(chunk=3)``, which gives the per-frame path's bits,
+    test_torch_svi_system.py) against the JAX package's sharded tracker (8
+    CPU devices) on the same frames and IMU blocks, free running:
+    ``n_active``, ``n_new`` and ``posit_ok`` on every frame and the keyframe
+    frames equal; the JAX table stays sharded. The two free-running float32
+    front-ends drift apart in pose (ROADMAP F9; found 1.3e-4 m by frame 7),
+    so the poses are held in lock step below."""
+    r0 = world2[0]
+    assert jax_svi["spec"] == "PartitionSpec('map',)"
+    assert len(jax_svi["outs"]) == SVI_FRAMES
+    for f in ("n_active", "n_new", "posit_ok"):
+        assert np.array_equal(r0[f"svi/sharded/{f}"],
+                              [np.asarray(getattr(o, f)) for o in jax_svi["outs"]]), f
+    assert list(r0["svi/sharded/keyframe_frames"]) == jax_svi["keyframe_frames"]
+
+
+def test_two_rank_svi_matches_jax_in_lock_step(world2, jax_svi):
+    """Lock step (test_torch_svi.py's): before every frame both ranks start
+    the sharded port from the JAX sharded tracker's state (``shard_state``
+    of ``convert.svi_state_from_numpy``), then step it as the JAX tracker
+    did (``process_imu``, ``process_imu_samples``; a one-frame
+    ``process_many_imu`` for frames 2-7). Per frame: ``posit_ok``,
+    ``is_keyframe``, ``n_tracked``, ``n_active``, ``n_new`` and ``inliers``
+    equal, the pose within 1e-4 m and 1e-5 rad; both ranks the same bits."""
+    from test_torch_svi import _pose_diff
+
+    r0, r1 = world2
+    for key in [k for k in r0 if k.startswith("svi_lock/")]:
+        assert np.array_equal(r0[key], r1[key]), key
+    outs = jax_svi["outs"]
+    for f in ("posit_ok", "is_keyframe", "n_tracked", "n_active", "n_new", "inliers"):
+        assert np.array_equal(r0[f"svi_lock/{f}"],
+                              [np.asarray(getattr(o, f)) for o in outs]), f
+    for i, o in enumerate(outs):
+        dpos, drot = _pose_diff(o.T_wc, r0["svi_lock/T_wc"][i])
+        assert dpos < 1e-4 and drot < 1e-5, (i, dpos, drot)
+
+
+@pytest.mark.parametrize("kind", ["slam", "svi"])
+def test_sharded_checkpoint_holds_every_row(world2, kind):
+    """``save_checkpoint`` of a sharded ``SLAMSystem`` / ``StereoInertialTracker``
+    (every rank calls it, rank 0 writes): every ``table__*`` array of the
+    file has the capacity's rows and equals, bit for bit, the table
+    gathered on each rank when it was saved."""
+    for r in world2:
+        names = [k.split("/")[-1] for k in r if k.startswith(f"{kind}_ckpt/file/")]
+        table = [k.split("/")[-1] for k in r if k.startswith(f"{kind}_ckpt/table/")]
+        assert sorted(names) == sorted(table) and set(INT_TABLE) <= set(names)
+        cap = r[f"{kind}_ckpt/table/uid"].shape[0]
+        assert cap == (64 if kind == "slam" else SVI_CAPACITY)
+        for name in names:
+            got, want = r[f"{kind}_ckpt/file/{name}"], r[f"{kind}_ckpt/table/{name}"]
+            assert got.shape[0] == cap, name
+            assert got.tobytes() == want.astype(got.dtype).tobytes(), name
+
+
+@pytest.mark.parametrize("kind", ["slam", "svi"])
+def test_jax_package_reads_sharded_checkpoint(world2, kind):
+    """The JAX package's ``load_checkpoint`` reads the file the sharded
+    port saved: the same kind of tracker, the whole table."""
+    from svi_mapper_tpu.io.checkpoint import load_checkpoint
+    from svi_mapper_tpu.models.slam import SLAMSystem
+    from svi_mapper_tpu.models.svi import StereoInertialTracker as JTracker
+
+    r0 = world2[0]
+    jt = load_checkpoint(str(r0["dir"] / f"{kind}_ckpt.npz"))
+    assert isinstance(jt, JTracker if kind == "svi" else SLAMSystem)
+    for name in INT_TABLE:
+        got = np.asarray(getattr(jt.state.table, name))
+        assert got.tobytes() == r0[f"{kind}_ckpt/file/{name}"].astype(got.dtype).tobytes(), name
+    assert np.array_equal(np.asarray(jt.state.table.pos_w), r0[f"{kind}_ckpt/file/pos_w"],
+                          equal_nan=True)
+
+
+def test_sharded_resume_gives_uninterrupted_bits(world2):
+    """``load_checkpoint`` -> ``shard_state`` -> the rest of the run, on
+    both ranks: ``SLAMSystem`` (the second chunk and ``finalize_backend``)
+    and the stereo-inertial tracker (frames 5-7) give the uninterrupted
+    sharded run's trajectory, keyframes, velocity and table bit for bit."""
+    for r in world2:
+        assert np.array_equal(r["slam_ckpt/resumed/trajectory"], r["slam/sharded/trajectory"])
+        assert np.array_equal(r["slam_ckpt/resumed/optimized"], r["slam/sharded/optimized"])
+        assert int(r["slam_ckpt/resumed/keyframes"]) == int(r["slam/sharded/keyframes"])
+        assert np.array_equal(r["svi_ckpt/resumed/T_wc"], r["svi/sharded/T_wc"][5:])
+        assert np.array_equal(r["svi_ckpt/resumed/velocity"], r["svi/sharded/velocity"][-1])
+        for kind, done in (("slam", "slam_ckpt/uninterrupted"), ("svi", "svi/sharded")):
+            keys = [k for k in r if k.startswith(f"{kind}_ckpt/resumed/table/")]
+            assert keys
+            for k in keys:
+                want = r[k.replace(f"{kind}_ckpt/resumed", done)]
+                assert np.array_equal(r[k], want, equal_nan=True), k
+
+
+HOST_READS = {"cloud": ("cloud/",), "g2o": ("g2o",), "viewer": ("viewer/",),
+              "logs": ("logs/landmarks_final", "logs/trajectory_kitti")}
+
+
+@pytest.mark.parametrize("world", ["world2", "world1"])
+@pytest.mark.parametrize("read", list(HOST_READS))
+def test_host_reads_of_a_sharded_system(request, world, read):
+    """``cloud_from_slam_state``, ``snapshot_slam`` (with landmarks, the g2o
+    bytes), ``snapshot_tracker`` and the logger's ``finalize`` dumps (bytes)
+    of the sharded ``SLAMSystem`` equal the same call on its state gathered,
+    unsharded, on every rank; the cloud holds landmarks and the g2o text
+    holds them. The attached logger's landmark-creation log, written by rank
+    0 from the replicated ``next_uid``, equals the unsharded run's."""
+    ranks = request.getfixturevalue(world)
+    prefixes = tuple(f"host/sharded/{p}" for p in HOST_READS[read])
+    for r in ranks:
+        keys = [k for k in r if k.startswith(prefixes)]
+        assert len(keys) >= len(prefixes)
+        for k in keys:
+            assert np.array_equal(r[k], r[k.replace("/sharded/", "/gathered/")],
+                                  equal_nan=True), k
+        assert np.array_equal(r[k], ranks[0][k], equal_nan=True)
+    r0 = ranks[0]
+    assert r0["host/sharded/cloud/uids"].size > 0
+    assert bytes(r0["host/sharded/g2o"]).count(b"VERTEX_TRACKXYZ") > 0
+    assert np.array_equal(r0["host/sharded/logs/landmark_creation"],
+                          r0["host/ref/logs/landmark_creation"])
+
+
+def test_host_read_keeps_nan_and_signed_zero_bits(world2, world1):
+    """``parallel.mesh.host_arrays`` of a ``Shard(0)`` float32 field whose
+    rows hold NaNs of two payloads, -0.0 and +0.0: every rank's rows in
+    rank order, bit for bit, on 2 ranks and on 1; a replicated field as it
+    is."""
+    for ranks in (world2, world1):
+        for r in ranks:
+            assert r["bits/gathered"].shape == (2 * len(ranks), 5)
+            assert np.array_equal(r["bits/gathered"], r["bits/want"])
+            assert np.array_equal(r["bits/replicated"], np.arange(4.0))
 
 
 def test_initialize_without_configuration(monkeypatch):

@@ -70,10 +70,11 @@ def _pose_diff(A, B):
     return float(np.linalg.norm(ca - cb)), float(np.arcsin(min(1.0, np.linalg.norm(w))))
 
 
-def make_data() -> dict:
+def make_data(n_frames: int = N_FRAMES) -> dict:
     """Frames rendered by the JAX package's renderer, its IMU measurement
-    arrays and calibration, and the port's camera."""
-    poses_fine = _fine_trajectory(N_FRAMES, SUB, DT_FINE)
+    arrays and calibration, and the port's camera (the first ``n_frames``
+    frames of the trajectory)."""
+    poses_fine = _fine_trajectory(n_frames, SUB, DT_FINE)
     jcam = j_default_camera(512, 256)
     bias_g = np.array([0.008, -0.003, 0.002])
     bias_a = np.array([0.04, -0.02, 0.08])
@@ -85,11 +86,11 @@ def make_data() -> dict:
     rng = np.random.default_rng(0)
     calib = j_imu.calibrate(bias_g + rng.normal(0, 0.001, (200, 3)),
                             UP * j_imu.GRAVITY + bias_a + rng.normal(0, 0.01, (200, 3)))
-    frame_poses = poses_fine[::SUB][:N_FRAMES]
+    frame_poses = poses_fine[::SUB][:n_frames]
     frames = [tuple(np.asarray(x) for x in j_render_stereo(jcam, jnp.asarray(T)))
               for T in frame_poses]
     blocks = []           # (dts, omega, accel) per frame; frame 0 is static
-    for i in range(N_FRAMES):
+    for i in range(n_frames):
         if i == 0:
             blocks.append((np.full(1, DT_FINE, np.float32), np.zeros((1, 3), np.float32),
                            (UP * j_imu.GRAVITY)[None].astype(np.float32)))

@@ -8,12 +8,17 @@ mesh and the state placements, runs the landmark-sharded Schur BA on each
 problem of ``problem.npz``, with its ``obs_w`` where it has one (the Schur
 sums then cross the process boundary through gloo's all_reduce), places
 each problem with ``shard_ba_inputs`` beside the slices the sharded BA cuts,
-then drives the landmark-sharded frame step (``frame_checks``) and writes
-``rank<r>.npz`` into ``out_dir``; rank 0 also writes the single-process
-``bundle_adjust`` of the same problems. Prints ``OK <rank>`` on success.
+then drives the landmark-sharded frame step (``frame_checks``), the
+host reads of a sharded state (``host_read_checks``) and the
+stereo-inertial tracker on it (``svi_checks``, on the frames and IMU
+samples of ``svi.npz`` beside ``problem.npz``), and writes ``rank<r>.npz``
+into ``out_dir``, beside the checkpoints it saved there; rank 0 also writes
+the single-process ``bundle_adjust`` of the same problems. Prints
+``OK <rank>`` on success.
 """
 
 import contextlib
+import copy
 import dataclasses
 import sys
 from pathlib import Path
@@ -57,7 +62,7 @@ def table_fields(state) -> dict:
     return {k: v.numpy() for k, v in zip(names, full)}
 
 
-def frame_checks(map_mesh, n: int) -> dict:
+def frame_checks(map_mesh, n: int, out_dir: Path) -> dict:
     """The landmark-sharded frame step: (i) one frame at the JAX test's size
     (``tests/test_parallel.py``), (ii) an 8-frame corridor through
     ``process_chunk`` in two chunks, (iii) ``SLAMSystem.process_many`` +
@@ -65,14 +70,18 @@ def frame_checks(map_mesh, n: int) -> dict:
     parameters, each also run on the unsharded state in this process, (iv)
     a capacity that does not split over the ranks, (v) the back-end's
     writes into the sharded table, and (vi) the system of (iii) with the
-    back-end worker and with the closure worker."""
+    back-end worker and with the closure worker. (iii) runs with a logger
+    attached and its sharded run saves a checkpoint between its chunks;
+    ``host_read_checks`` reads both systems after it."""
     from torch.distributed.tensor import Replicate, Shard
 
     from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
+    from svi_mapper_tpu_torch.io.checkpoint import save_checkpoint
     from svi_mapper_tpu_torch.io.synthetic import SyntheticSequence, default_camera
     from svi_mapper_tpu_torch.models import frame
     from svi_mapper_tpu_torch.models.slam import SLAMSystem
     from svi_mapper_tpu_torch.parallel import mesh
+    from svi_mapper_tpu_torch.utils import loggers
 
     out = {}
     # (iv)
@@ -135,14 +144,24 @@ def frame_checks(map_mesh, n: int) -> dict:
         DEFAULT_PARAMS, max_landmarks=cap, max_detections=cap, max_measurements=4,
         keyframe_translation_m2=0.25, keyframe_rotation_rad2=0.01,
         keyframe_min_landmarks=8, optimize_every_keyframes=4)
-    slams = {}
+    slams, logs, rank = {}, {}, dist.get_rank()
     for key in ("sharded", "ref"):
         slam = slams[key] = SLAMSystem(seq.cam, slam_params, enable_loop_closure=True,
                           enable_local_ba=True, local_ba_every=2, ba_window=4,
                           consensus_window=4, device="cpu")
         if key == "sharded":
             slam.state = mesh.shard_state(slam.state, map_mesh)
-        slam.process_many(Ls, Rs, chunk=4)
+        logs[key] = loggers.attach(
+            slam, out_dir / ("logs_sharded" if key == "sharded" else f"logs_ref_rank{rank}"))
+        # the sharded run saves a checkpoint between its two chunks (the
+        # same chunks as one call); host_read_checks resumes from it
+        slam.process_many(Ls[:4], Rs[:4], chunk=4)
+        if key == "sharded":
+            save_checkpoint(out_dir / "slam_ckpt.npz", slam)
+            out["slam_ckpt/at_save"] = np.array(
+                [int(x) for x in (slam.frame_count, len(slam.slam_keyframes))])
+            out.update({f"slam_ckpt/table/{k}": v for k, v in table_fields(slam.state).items()})
+        slam.process_many(Ls[4:], Rs[4:], chunk=4)
         slam.finalize_backend()
         if key == "sharded":
             assert slam.state.table.pos_w.placements == (Shard(0),)
@@ -151,6 +170,7 @@ def frame_checks(map_mesh, n: int) -> dict:
                     f"slam/{key}/ba_runs": np.array(slam.stats["ba_runs"]),
                     f"slam/{key}/trajectory": slam.trajectory_array,
                     f"slam/{key}/optimized": slam.optimized_trajectory()})
+    out.update(host_read_checks(map_mesh, slams, logs, (Ls, Rs), out_dir))
 
     # (vi) the same system with each worker (dryrun_multichip's overlapped
     # run; "force" keeps the back-end worker with one visible device)
@@ -187,6 +207,219 @@ def frame_checks(map_mesh, n: int) -> dict:
         out.update({f"moved/{key}/{k}": v for k, v in table_fields(slam.state).items()})
         out[f"moved/{key}/T_wc"] = slam._local_state()[0].T_wc.numpy()
     return out
+
+
+def gathered_copy(system):
+    """A shallow copy of ``system`` whose state is its state gathered onto
+    this process, unsharded (the host records shared)."""
+    from svi_mapper_tpu_torch import convert
+
+    clone = copy.copy(system)
+    clone.state = convert.state_from_numpy(convert.state_to_numpy(system.state), "cpu")
+    return clone
+
+
+def host_reads(system, tag: str, out_dir: Path, logger=None) -> dict:
+    """What each host read of ``system`` gives: the cloud, the g2o text,
+    the viewer's inputs and the end-of-run dumps of ``logger`` (a new one
+    under ``logs_<tag>`` if None)."""
+    from svi_mapper_tpu_torch.eval.viewer import snapshot_tracker
+    from svi_mapper_tpu_torch.io.cloud import cloud_from_slam_state
+    from svi_mapper_tpu_torch.io.g2o_export import snapshot_slam
+    from svi_mapper_tpu_torch.utils import loggers
+
+    cloud = cloud_from_slam_state(system.state, 3, system.frame_count - 1)
+    out = {f"cloud/{f.name}": np.asarray(getattr(cloud, f.name))
+           for f in dataclasses.fields(cloud)}
+    snapshot_slam(system, out_dir / f"{tag}.g2o")
+    out["g2o"] = np.frombuffer((out_dir / f"{tag}.g2o").read_bytes(), np.uint8)
+    view = snapshot_tracker(system)
+    out.update({f"viewer/{k}": np.asarray(v) for k, v in view.items() if k != "hud"})
+    out.update({f"viewer/hud/{k}": np.asarray(v) for k, v in view["hud"].items()})
+    logger = logger or loggers.RunLogger(out_dir / f"logs_{tag}")
+    loggers.finalize(system, logger)
+    for name in ("landmarks_final", "landmarks_final_optimized", "trajectory_kitti",
+                 "landmark_creation"):
+        f = logger.dir / f"{name}.txt"
+        if f.exists():
+            out[f"logs/{name}"] = np.frombuffer(f.read_bytes(), np.uint8)
+    return out
+
+
+def host_read_checks(map_mesh, slams: dict, logs: dict, frames, out_dir: Path) -> dict:
+    """(vii) Host reads of the sharded state of (iii): the checkpoint its
+    run saved between its chunks holds every row and resumes (load ->
+    ``shard_state`` -> the second chunk -> ``finalize_backend``) to the
+    uninterrupted run's bits; the cloud, the g2o text, the viewer's inputs
+    and the logger's dumps of the final system equal those of the same
+    state gathered and unsharded (rank 0 wrote the shared files; each rank
+    writes the unsharded ones under its own name)."""
+    from torch.distributed.tensor import Shard
+
+    from svi_mapper_tpu_torch.io.checkpoint import load_checkpoint
+    from svi_mapper_tpu_torch.parallel import mesh
+
+    rank = dist.get_rank()
+    Ls, Rs = frames
+    out = {}
+    with np.load(out_dir / "slam_ckpt.npz") as z:
+        out.update({f"slam_ckpt/file/{k.removeprefix('table__')}": z[k]
+                    for k in z.files if k.startswith("table__")})
+    resumed = load_checkpoint(out_dir / "slam_ckpt.npz", device="cpu")
+    resumed.state = mesh.shard_state(resumed.state, map_mesh)
+    resumed.process_many(Ls[4:], Rs[4:], chunk=4)
+    resumed.finalize_backend()
+    assert resumed.state.table.pos_w.placements == (Shard(0),)
+    out.update({"slam_ckpt/resumed/trajectory": resumed.trajectory_array,
+                "slam_ckpt/resumed/optimized": resumed.optimized_trajectory(),
+                "slam_ckpt/resumed/keyframes": np.array(len(resumed.slam_keyframes))})
+    out.update({f"slam_ckpt/resumed/table/{k}": v
+                for k, v in table_fields(resumed.state).items()})
+    system = slams["sharded"]
+    out.update({f"slam_ckpt/uninterrupted/table/{k}": v
+                for k, v in table_fields(system.state).items()})
+    got = host_reads(system, "sharded", out_dir, logs["sharded"])
+    want = host_reads(gathered_copy(system), f"gathered_rank{rank}", out_dir)
+    ref = host_reads(slams["ref"], f"ref_rank{rank}", out_dir, logs["ref"])
+    out.update({f"host/sharded/{k}": v for k, v in got.items()})
+    out.update({f"host/gathered/{k}": v for k, v in want.items()})
+    # the unsharded run's landmark-creation log (integers only)
+    out["host/ref/logs/landmark_creation"] = ref["logs/landmark_creation"]
+    return out
+
+
+SVI_CHUNK = 3     # frames 2-7 in two chunks of three
+
+
+def svi_checks(map_mesh, path: Path, out_dir: Path) -> dict:
+    """(viii) ``StereoInertialTracker`` on the sharded state and on the
+    unsharded one, over ``svi.npz``'s frames: frame 0 through
+    ``process_imu``, frame 1 through ``process_imu_samples``, frames 2-7
+    through ``process_many_imu(chunk=3)``, once as is and once with
+    ``equalize=True``. The sharded run as is saves a checkpoint between its
+    two chunks (after frame 4) and is resumed from it (load ->
+    ``shard_state`` -> frames 5-7). Then a lock step against the JAX
+    package: before every frame the sharded tracker starts from the JAX
+    tracker's state of ``svi.npz`` (``lock/<i>/...``). One rank runs the
+    first variant alone and no lock step (the tests read those of 2)."""
+    from torch.distributed.tensor import Shard
+
+    from svi_mapper_tpu_torch import convert
+    from svi_mapper_tpu_torch.config import DEFAULT_PARAMS
+    from svi_mapper_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from svi_mapper_tpu_torch.models.svi import StereoInertialTracker
+    from svi_mapper_tpu_torch.parallel import mesh
+
+    z = np.load(path)
+    cam = convert.camera_from_numpy(
+        {eye: {**{k: z[f"cam/{eye}/{k}"] for k in ("P", "K", "dist", "R_rect")},
+               "width": int(z[f"cam/{eye}/width"]), "height": int(z[f"cam/{eye}/height"])}
+         for eye in ("left", "right")}, "cpu")
+    calib = convert.imu_calibration_from_numpy(
+        {k.removeprefix("calib/"): z[k] for k in z.files if k.startswith("calib/")})
+    params = dataclasses.replace(DEFAULT_PARAMS, **{
+        k.removeprefix("params/"): z[k].item() for k in z.files if k.startswith("params/")})
+    Ls, Rs, nz = torch.from_numpy(z["L"]), torch.from_numpy(z["R"]), z["n"]
+    blocks = [(z["dts"][i, :nz[i]], z["omega"][i, :nz[i]], z["accel"][i, :nz[i]])
+              for i in range(len(nz))]
+    out = {}
+
+    def samples(a, b):
+        return [list(x) for x in zip(*blocks[a:b])]
+
+    def record(tr, key, outs, vels):
+        o = {f: np.stack([np.asarray(getattr(x, f)) for x in outs])
+             for f in ("posit_ok", "n_tracked", "n_active", "n_optimal", "n_new",
+                       "is_keyframe", "inliers", "instability", "T_wc")}
+        o.update(velocity=np.stack(vels), gravity_obs=np.array(tr.gravity_obs).reshape(-1, 3),
+                 keyframe_frames=np.array([k.frame_idx for k in tr.slam_keyframes]))
+        out.update({f"{key}/{k}": v for k, v in o.items()})
+        out.update({f"{key}/table/{k}": v for k, v in table_fields(tr.state).items()})
+
+    one_rank = dist.get_world_size() == 1
+    variants = (("svi", False),) if one_rank else (("svi", False), ("svi_equalize", True))
+    for variant, equalize in variants:
+        for key in ("sharded", "ref"):
+            tr = StereoInertialTracker(cam, calib, params, equalize=equalize,
+                                       enable_loop_closure=False, enable_local_ba=False,
+                                       device="cpu")
+            sharded = key == "sharded"
+            if sharded:
+                tr.state = mesh.shard_state(tr.state, map_mesh)
+            outs, vels = [], []
+            outs.append(tr.process_imu(Ls[0], Rs[0], blocks[0][1][0], blocks[0][2][0],
+                                       float(blocks[0][0][0])))
+            vels.append(tr.velocity.numpy().copy())
+            outs.append(tr.process_imu_samples(Ls[1], Rs[1], *blocks[1]))
+            vels.append(tr.velocity.numpy().copy())
+            if sharded:     # process_imu and process_imu_samples keep the rows split
+                assert tr.state.table.pos_w.placements == (Shard(0),)
+            for a, b in ((2, 5), (5, 8)):
+                outs += tr.process_many_imu(Ls[a:b], Rs[a:b], *samples(a, b), chunk=SVI_CHUNK)
+                vels.append(tr.velocity.numpy().copy())
+                if sharded:
+                    assert tr.state.table.pos_w.placements == (Shard(0),)
+                if sharded and not equalize and b == 5:
+                    save_checkpoint(out_dir / "svi_ckpt.npz", tr)
+                    out.update({f"svi_ckpt/table/{k}": v
+                                for k, v in table_fields(tr.state).items()})
+            record(tr, f"{variant}/{key}", outs, vels)
+    # the lock step: before every frame the tracker takes the JAX package's
+    # state (gathered, as numpy) and shards it again
+    tr = StereoInertialTracker(cam, calib, params, equalize=False,
+                               enable_loop_closure=False, enable_local_ba=False, device="cpu")
+    outs = []
+    for i in range(0 if one_rank else len(nz)):
+        st = {k.split("/")[-1]: z[k] for k in z.files if k.startswith(f"lock/{i}/state/")}
+        st["table"] = {k.split("/")[-1]: z[k] for k in z.files
+                       if k.startswith(f"lock/{i}/table/")}
+        convert.svi_state_from_numpy(tr, {"state": st, **{
+            k: z[f"lock/{i}/{k}"] for k in ("velocity", "gravity_obs", "T_cam_imu")}})
+        tr.state = mesh.shard_state(tr.state, map_mesh)
+        if i == 0:
+            outs.append(tr.process_imu(Ls[0], Rs[0], blocks[0][1][0], blocks[0][2][0],
+                                       float(blocks[0][0][0])))
+        elif i == 1:
+            outs.append(tr.process_imu_samples(Ls[1], Rs[1], *blocks[1]))
+        else:
+            outs += tr.process_many_imu(Ls[i:i + 1], Rs[i:i + 1], *samples(i, i + 1), chunk=1)
+        assert tr.state.table.pos_w.placements == (Shard(0),)
+    if outs:
+        out.update({f"svi_lock/{f}": np.stack([np.asarray(getattr(o, f)) for o in outs])
+                    for f in ("posit_ok", "is_keyframe", "n_tracked", "n_active", "n_new",
+                              "inliers", "T_wc")})
+    resumed = load_checkpoint(out_dir / "svi_ckpt.npz", device="cpu")
+    resumed.state = mesh.shard_state(resumed.state, map_mesh)
+    outs = resumed.process_many_imu(Ls[5:], Rs[5:], *samples(5, 8), chunk=SVI_CHUNK)
+    out["svi_ckpt/resumed/T_wc"] = np.stack([np.asarray(o.T_wc) for o in outs])
+    out["svi_ckpt/resumed/velocity"] = resumed.velocity.numpy()
+    out.update({f"svi_ckpt/resumed/table/{k}": v
+                for k, v in table_fields(resumed.state).items()})
+    with np.load(out_dir / "svi_ckpt.npz") as f:
+        out.update({f"svi_ckpt/file/{k.removeprefix('table__')}": f[k]
+                    for k in f.files if k.startswith("table__")})
+    return out
+
+
+def host_read_bits(map_mesh) -> dict:
+    """(ix) ``parallel.mesh.host_arrays`` of a ``Shard(0)`` float32 field
+    whose rows hold NaNs of two payloads, -0.0 and +0.0 on every rank:
+    every rank's rows, bit for bit, and a replicated field as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from svi_mapper_tpu_torch.parallel import mesh
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    bits = np.array([0x7FC00000, 0x7FC00001 + rank, 0x80000000, 0x00000000,
+                     0x3F800000 + rank], np.uint32)
+    rows = torch.from_numpy(np.tile(bits.view(np.float32), (2, 1)))
+    field = DTensor.from_local(rows, map_mesh, (Shard(0),), run_check=False)
+    pose = DTensor.from_local(torch.arange(4.0), map_mesh, (Replicate(),), run_check=False)
+    full, rep = mesh.host_arrays(field, pose)
+    want = np.concatenate([np.tile(np.array(
+        [0x7FC00000, 0x7FC00001 + r, 0x80000000, 0, 0x3F800000 + r], np.uint32), (2, 1))
+        for r in range(n)])
+    return {"bits/gathered": full.view(np.uint32), "bits/want": want, "bits/replicated": rep}
 
 
 def main() -> None:
@@ -253,7 +486,9 @@ def main() -> None:
             out.update({f"{name}/ref_T_wc": ref.T_wc.numpy(),
                         f"{name}/ref_points_w": ref.points_w.numpy(),
                         f"{name}/ref_chi2": ref.chi2_final.numpy()})
-    out.update(frame_checks(map_mesh, n))
+    out.update(frame_checks(map_mesh, n, out_dir))
+    out.update(svi_checks(map_mesh, Path(sys.argv[4]).with_name("svi.npz"), out_dir))
+    out.update(host_read_bits(map_mesh))
     np.savez(out_dir / f"rank{rank}.npz", **out)
     dist.destroy_process_group()
     print(f"OK {rank}", flush=True)
