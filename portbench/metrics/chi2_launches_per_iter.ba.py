@@ -1,0 +1,11 @@
+"""chi2_launches_per_iter.ba: kernels whose innermost program span is
+``svi.ba.chi2`` (every ``total_chi2``, the initial one included: the dense
+``[K, L, 4]`` passes and the pose chain's ``log_se3``), over the LM
+iterations of the window's solves. Silent where the program has no spans
+or the trace holds no device operation."""
+
+from portbench import spans
+
+
+def read(run):
+    return spans.launches_per_iteration(run, "svi.ba.chi2")

@@ -1,0 +1,11 @@
+"""update_launches_per_iter.ba: kernels whose innermost program span is
+``svi.ba.update`` (the landmarks' back-substitution, ``exp_se3`` and
+``make_T`` of the pose update), over the LM iterations of the window's
+solves. Silent where the program has no spans or the trace holds no device
+operation."""
+
+from portbench import spans
+
+
+def read(run):
+    return spans.launches_per_iteration(run, "svi.ba.update")

@@ -34,12 +34,11 @@ worker reads them for the pose graph's and BA's gravity unaries.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from svi_mapper_tpu_torch.config import DEFAULT_PARAMS, TrackingParams
+from svi_mapper_tpu_torch.eval.timing import span
 from svi_mapper_tpu_torch.geometry.camera import StereoCamera
 from svi_mapper_tpu_torch.imu import interpolator as imu_mod
 from svi_mapper_tpu_torch.models import frame as frame_mod
@@ -153,17 +152,18 @@ class StereoInertialTracker(SLAMSystem):
           omega: [n,3] raw IMU-frame angular velocities.
           accel: [n,3] raw IMU-frame specific forces.
         """
-        t0 = time.perf_counter()
-        d, om, ac, va = (self._dev(a) for a in self._pad_samples(dts, omega, accel))
-        do_opt = (self.frame_count % self.landmark_opt_every) == 0
-        self.state, out, self.velocity = frame_mod.process_frame_svi(
-            self.state, img_left, img_right, self.cam, self.params,
-            d, om, ac, va, self.velocity, self._R_ci,
-            self._bias_gyro, self._bias_accel,
-            do_landmark_opt=do_opt, equalize=self.equalize,
-            rect_maps=self.rectify_maps, device=self.device,
-        )
-        return self._record_frame(out, t0)
+        with span("svi.frame.step", into=(self.timings, "frame_total")):
+            d, om, ac, va = (self._dev(a) for a in self._pad_samples(dts, omega, accel))
+            do_opt = (self.frame_count % self.landmark_opt_every) == 0
+            self.state, out, self.velocity = frame_mod.process_frame_svi(
+                self.state, img_left, img_right, self.cam, self.params,
+                d, om, ac, va, self.velocity, self._R_ci,
+                self._bias_gyro, self._bias_accel,
+                do_landmark_opt=do_opt, equalize=self.equalize,
+                rect_maps=self.rectify_maps, device=self.device,
+            )
+            out = out.to_host()            # all per-frame outputs in one read
+        return self._record_frame(out)
 
     def process_many_imu(self, imgs_left, imgs_right, dts, omega, accel,
                          chunk: int = 16) -> list:
@@ -187,17 +187,16 @@ class StereoInertialTracker(SLAMSystem):
         outs: list = []
         for s in range(0, n, chunk):
             e = min(s + chunk, n)
-            t0 = time.perf_counter()
-            self.state, self.velocity, stacked, snaps = frame_mod.process_chunk_svi(
-                self.state, L[s:e], R[s:e], self.cam, self.params,
-                d_all[s:e], om_all[s:e], ac_all[s:e], va_all[s:e],
-                self.velocity, self._R_ci, self._bias_gyro, self._bias_accel,
-                landmark_opt_every=self.landmark_opt_every,
-                equalize=self.equalize, rect_maps=self.rectify_maps,
-                device=self.device,
-            )
-            stacked = stacked.to_host()   # one copy for the chunk's outputs
-            self.timings["frame_total"] += time.perf_counter() - t0
+            with span("svi.frame.chunk", into=(self.timings, "frame_total")):
+                self.state, self.velocity, stacked, snaps = frame_mod.process_chunk_svi(
+                    self.state, L[s:e], R[s:e], self.cam, self.params,
+                    d_all[s:e], om_all[s:e], ac_all[s:e], va_all[s:e],
+                    self.velocity, self._R_ci, self._bias_gyro, self._bias_accel,
+                    landmark_opt_every=self.landmark_opt_every,
+                    equalize=self.equalize, rect_maps=self.rectify_maps,
+                    device=self.device,
+                )
+                stacked = stacked.to_host()   # one copy for the chunk's outputs
             outs.extend(self._finish_chunk(stacked, snaps, e - s))
             self._apply_folds()       # no-op without the overlapped back-end
             self._maybe_world_shift()
@@ -213,28 +212,26 @@ class StereoInertialTracker(SLAMSystem):
     # ------------------------------------------------------------------
     def _process_with_prior(self, L, R, T_prior, T_before, dt):
         """The visual step under an external prior (the single-sample path)."""
-        t0 = time.perf_counter()
-        do_opt = (self.frame_count % self.landmark_opt_every) == 0
-        state2, out = frame_mod.process_frame(
-            self.state, L, R, self.cam, self.params, T_prior,
-            use_external_prior=True, do_landmark_opt=do_opt,
-            device=self.device,
-        )
-        # velocity from the visual solve delta, BEFORE back-end corrections
-        # and the robocentric world shift change the gauge — differencing
-        # across a rebase would absorb the shift into a huge spurious
-        # velocity that poisons the next IMU prior
-        self.state = state2
-        self.velocity = frame_mod.svi_velocity(self._local_state()[0].T_wc, T_before,
-                                               dt, self.velocity)
-        return self._record_frame(out, t0)
+        with span("svi.frame.step", into=(self.timings, "frame_total")):
+            do_opt = (self.frame_count % self.landmark_opt_every) == 0
+            state2, out = frame_mod.process_frame(
+                self.state, L, R, self.cam, self.params, T_prior,
+                use_external_prior=True, do_landmark_opt=do_opt,
+                device=self.device,
+            )
+            # velocity from the visual solve delta, BEFORE back-end corrections
+            # and the robocentric world shift change the gauge — differencing
+            # across a rebase would absorb the shift into a huge spurious
+            # velocity that poisons the next IMU prior
+            self.state = state2
+            self.velocity = frame_mod.svi_velocity(self._local_state()[0].T_wc, T_before,
+                                                   dt, self.velocity)
+            out = out.to_host()            # all per-frame outputs in one read
+        return self._record_frame(out)
 
-    def _record_frame(self, out, t0: float):
-        """Host bookkeeping of one per-frame SVI step: the outputs in one
-        read, the trajectory, and the keyframe event with its gravity
-        observation."""
-        out = out.to_host()            # all per-frame outputs in one read
-        self.timings["frame_total"] += time.perf_counter() - t0
+    def _record_frame(self, out):
+        """Host bookkeeping of one per-frame SVI step, its outputs read: the
+        trajectory, and the keyframe event with its gravity observation."""
         self.frame_count += 1
         self.trajectory.append(out.T_wc)
         self.outputs.append(out)

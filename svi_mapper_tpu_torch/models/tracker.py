@@ -14,12 +14,12 @@ world shift moves each rank's own rows.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
 from svi_mapper_tpu_torch.config import DEFAULT_PARAMS, TrackingParams
+from svi_mapper_tpu_torch.eval.timing import span
 from svi_mapper_tpu_torch.geometry.camera import StereoCamera
 from svi_mapper_tpu_torch.models import frame as frame_mod
 from svi_mapper_tpu_torch.utils.device import resolve_device
@@ -84,20 +84,19 @@ class StereoTracker:
         self.world_shifts = 0
 
     def process(self, img_left, img_right, T_gt=None) -> frame_mod.FrameOutput:
-        t0 = time.perf_counter()
-        do_opt = (self.frame_count % self.landmark_opt_every) == 0
-        if self.use_gt_pose and T_gt is None:
-            raise ValueError("GT tracker needs a ground-truth pose")
-        if T_gt is not None:
-            T_gt = self._to_internal(np.asarray(T_gt, np.float64)).astype(np.float32)
-        self.state, out = frame_mod.process_frame(
-            self.state, img_left, img_right, self.cam, self.params, T_gt,
-            use_gt_pose=self.use_gt_pose,
-            do_landmark_opt=do_opt,
-            device=self.device,
-        )
-        out = out.to_host()            # all per-frame outputs in one read
-        self.timings["frame_total"] += time.perf_counter() - t0
+        with span("svi.frame.step", into=(self.timings, "frame_total")):
+            do_opt = (self.frame_count % self.landmark_opt_every) == 0
+            if self.use_gt_pose and T_gt is None:
+                raise ValueError("GT tracker needs a ground-truth pose")
+            if T_gt is not None:
+                T_gt = self._to_internal(np.asarray(T_gt, np.float64)).astype(np.float32)
+            self.state, out = frame_mod.process_frame(
+                self.state, img_left, img_right, self.cam, self.params, T_gt,
+                use_gt_pose=self.use_gt_pose,
+                do_landmark_opt=do_opt,
+                device=self.device,
+            )
+            out = out.to_host()            # all per-frame outputs in one read
         self.frame_count += 1
         self.trajectory.append(out.T_wc)
         # lost-track detection: >75 % of the previously-visible landmark set
@@ -217,18 +216,17 @@ class StereoTracker:
         outs: list[frame_mod.FrameOutput] = []
         for s in range(0, n, chunk):
             e = min(s + chunk, n)
-            t0 = time.perf_counter()
-            T_sl = None if T_gt is None else (
-                np.asarray(T_gt[s:e], np.float64)
-                @ self._translate4(self.world_offset)).astype(np.float32)
-            self.state, stacked = frame_mod.process_chunk(
-                self.state, L[s:e], R[s:e], self.cam, self.params, T_sl,
-                use_gt_pose=self.use_gt_pose,
-                landmark_opt_every=self.landmark_opt_every,
-                device=self.device,
-            )
-            stacked = stacked.to_host()   # one copy for the chunk's outputs
-            self.timings["frame_total"] += time.perf_counter() - t0
+            with span("svi.frame.chunk", into=(self.timings, "frame_total")):
+                T_sl = None if T_gt is None else (
+                    np.asarray(T_gt[s:e], np.float64)
+                    @ self._translate4(self.world_offset)).astype(np.float32)
+                self.state, stacked = frame_mod.process_chunk(
+                    self.state, L[s:e], R[s:e], self.cam, self.params, T_sl,
+                    use_gt_pose=self.use_gt_pose,
+                    landmark_opt_every=self.landmark_opt_every,
+                    device=self.device,
+                )
+                stacked = stacked.to_host()   # one copy for the chunk's outputs
             for i in range(e - s):
                 out = _output_at(stacked, i)
                 self.frame_count += 1

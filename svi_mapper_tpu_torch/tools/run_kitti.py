@@ -63,28 +63,29 @@ def main(argv: list[str] | None = None) -> None:
     n = seq.n_frames if args.frames == 0 else min(args.frames, seq.n_frames)
     timer = StageTimer()
     t0 = time.perf_counter()
-    if args.chunk > 1:
-        for s in range(0, n, args.chunk):
-            e = min(s + args.chunk, n)
-            with timer.stage("io"):
-                frames = [seq.frame(i) for i in range(s, e)]
-                L = np.stack([f[0] for f in frames])
-                R = np.stack([f[1] for f in frames])
-                T = np.stack([f[2] for f in frames]) if args.gt else None
-            with timer.stage("track"):
-                outs = tracker.process_many(L, R, T_gt=T, chunk=args.chunk)
-            out = outs[-1]
-            print(f"[{e - 1:05d}] tracked={int(out.n_tracked):4d} "
-                  f"optimal={int(out.n_optimal):4d} ok={int(bool(out.posit_ok))}")
-    else:
-        for i in range(n):
-            with timer.stage("io"):
-                L, R, T_gt = seq.frame(i)
-            with timer.stage("track"):
-                out = tracker.process(L, R, T_gt=T_gt if args.gt else None)
-            if i % 50 == 0:
-                print(f"[{i:05d}] tracked={int(out.n_tracked):4d} "
+    with timer.recording():    # the program's spans join the report
+        if args.chunk > 1:
+            for s in range(0, n, args.chunk):
+                e = min(s + args.chunk, n)
+                with timer.stage("io"):
+                    frames = [seq.frame(i) for i in range(s, e)]
+                    L = np.stack([f[0] for f in frames])
+                    R = np.stack([f[1] for f in frames])
+                    T = np.stack([f[2] for f in frames]) if args.gt else None
+                with timer.stage("track"):
+                    outs = tracker.process_many(L, R, T_gt=T, chunk=args.chunk)
+                out = outs[-1]
+                print(f"[{e - 1:05d}] tracked={int(out.n_tracked):4d} "
                       f"optimal={int(out.n_optimal):4d} ok={int(bool(out.posit_ok))}")
+        else:
+            for i in range(n):
+                with timer.stage("io"):
+                    L, R, T_gt = seq.frame(i)
+                with timer.stage("track"):
+                    out = tracker.process(L, R, T_gt=T_gt if args.gt else None)
+                if i % 50 == 0:
+                    print(f"[{i:05d}] tracked={int(out.n_tracked):4d} "
+                          f"optimal={int(out.n_optimal):4d} ok={int(bool(out.posit_ok))}")
     wall = time.perf_counter() - t0
     print(timer.report(n, wall))
     if logger is not None:
