@@ -1359,11 +1359,13 @@ def run_bundle_adjust(device, K: int, iterations: int) -> dict:
     run(2)                                             # warm-up
     torch.cuda.synchronize()
     before = launch_counts()[name]
+    graphs_before = ba.graph_counts()
     t0 = time.perf_counter()
     prep, res = run(iterations)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_counts()[name] - before
+    graphs = {k: v - graphs_before[k] for k, v in ba.graph_counts().items()}
     its = int(res.iterations)
     err2, depth = ba.reprojection_stats(res.T_wc, res.points_w, t["obs_uv"],
                                         prep.mask, cam, device=device)
@@ -1371,6 +1373,10 @@ def run_bundle_adjust(device, K: int, iterations: int) -> dict:
     chi0, chi1 = float(res.chi2_initial), float(res.chi2_final)
     require(its == iterations, f"K={K}: {its} LM iterations of {iterations}")
     require(launches == its, f"K={K}: {launches} launches of {name} in {its} iterations")
+    # the warm-up captured this window's stages: the update and chi^2 replay
+    # (the window has no pose chain or gravity term, so no priors stage)
+    require(graphs == {"graph_capture": 0, "graph_replay": 2 * its + 1},
+            f"K={K}: LM graphs {graphs} in {its} iterations")
     require(np.isfinite(chi1) and chi1 < 0.2 * chi0, f"K={K}: chi2 {chi0} -> {chi1}")
     T_est = res.T_wc.cpu().numpy()
     pose_err = float(np.abs(T_est[:, :3, 3] - p["T"][:, :3, 3]).max())
@@ -1387,6 +1393,7 @@ def run_bundle_adjust(device, K: int, iterations: int) -> dict:
     require(bool(torch.isfinite(err2).all()), "reprojection_stats not finite")
     return dict(
         K=K, L=BA_LANDMARKS, kernel=name, iterations=its, launches=launches,
+        graph_replays=graphs["graph_replay"],
         launches_per_iteration=launches / its, seconds=seconds,
         lm_iterations_per_s=its / seconds, ms_per_iteration=1e3 * seconds / its,
         chi2_initial=chi0, chi2_final=chi1, n_obs=int(prep.n_obs),

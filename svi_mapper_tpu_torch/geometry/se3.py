@@ -170,14 +170,29 @@ def log_se3(T: torch.Tensor) -> torch.Tensor:
     return torch.cat([rho, phi], dim=-1)
 
 
+_bottom_rows: dict[tuple[torch.device, torch.dtype], torch.Tensor] = {}
+
+
+def _bottom_row(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The row ``[0, 0, 0, 1]``, made on ``device``: no copy from the host,
+    which a CUDA-graph capture refuses. Kept per device and dtype once made
+    outside a capture (one made inside belongs to the graph's memory and
+    holds its values only when the graph replays)."""
+    row = _bottom_rows.get((device, dtype))
+    if row is None:
+        row = torch.eye(4, dtype=dtype, device=device)[3]
+        if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+            _bottom_rows[(device, dtype)] = row
+    return row
+
+
 def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble 4x4 isometries from rotations and translations."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    bottom = _bottom_row(R.dtype, R.device).expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

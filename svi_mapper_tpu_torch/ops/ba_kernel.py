@@ -444,20 +444,45 @@ def _cuda_inputs(T_wc, points_w, obs_uv, obs_w, name: str):
     return out
 
 
+def schur_out(K: int, L: int, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The three kernels' output buffers for a ``[K, L]`` window on ``dev``:
+    ``(buf, W)``, ``buf`` holding every region of
+    :meth:`SchurTiling.layout`. A caller that passes them as ``out=`` to
+    every call of one window keeps its outputs at fixed addresses."""
+    lay = schur_tiling(K, L, _sm_count(dev.index)).layout()
+    return (torch.empty(lay["total"][1], dtype=torch.float32, device=dev),
+            torch.empty((3, 6 * K, L), dtype=torch.float32, device=dev))
+
+
+def schur_views(out) -> tuple[torch.Tensor, ...]:
+    """``(S, rhs, Hll_inv, b_l, W)``: the outputs inside ``out = (buf, W)``
+    of :func:`schur_out`, as views."""
+    buf, W = out
+    K, L = W.shape[1] // 6, W.shape[2]
+    lay = schur_tiling(K, L, _sm_count(W.device.index)).layout()
+    view = lambda name, *shape: buf.narrow(0, lay[name][0], lay[name][1]).view(shape)  # noqa: E731
+    return (view("S", K, 6, K, 6), view("rhs", K, 6), view("Hll_inv", L, 3, 3),
+            view("b_l", L, 3), W)
+
+
 def launch_schur_system(T, X, obs, ow, lam, cam_scalars, point_damping, *,
-                        tiled: bool):
-    """Allocate and launch the three kernels on checked, contiguous CUDA
-    inputs and count the launch under K5 (``tiled``) or K4. Returns
-    ``(S, rhs, Hll_inv, b_l, W)``; ``cam_scalars`` is ``(fx, fy, cx, cy,
-    bq, kernel_px2)``."""
+                        tiled: bool, out=None):
+    """Launch the three kernels on checked, contiguous CUDA inputs into
+    ``out`` (:func:`schur_out`'s buffers; allocated here when ``None``) and
+    count the launch under K5 (``tiled``) or K4. Returns ``(S, rhs,
+    Hll_inv, b_l, W)``, views of ``out``; ``cam_scalars`` is ``(fx, fy, cx,
+    cy, bq, kernel_px2)``."""
     K, L = ow.shape
     dev = T.device
     tiling = schur_tiling(K, L, _sm_count(dev.index))
-    lay = tiling.layout()
-    W = torch.empty((3, 6 * K, L), dtype=torch.float32, device=dev)
-    buf = torch.empty(lay["total"][1], dtype=torch.float32, device=dev)
+    buf, W = schur_out(K, L, dev) if out is None else out
+    if (buf.shape != (tiling.layout()["total"][1],) or W.shape != (3, 6 * K, L)
+            or any(t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
+                   for t in (buf, W))):
+        raise ValueError(f"out: buffers {tuple(buf.shape)}, {tuple(W.shape)} are not "
+                         f"schur_out({K}, {L}) on {dev}")
     base = buf.data_ptr()
-    ptr = {name: base + 4 * at for name, (at, _) in lay.items()}
+    ptr = {name: base + 4 * at for name, (at, _) in tiling.layout().items()}
     damping = float(np.float32(float(lam)) + np.float32(point_damping))
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):
@@ -473,22 +498,28 @@ def launch_schur_system(T, X, obs, ow, lam, cam_scalars, point_damping, *,
     work = lambda: (lambda c: (c["bytes"], c["flops"]))(paths.schur_work(ow, K, L))  # noqa: E731
     paths.count_launch(__name__, "schur_assemble_tiled" if tiled else "schur_assemble",
                        work=work)
-    view = lambda name, *shape: buf.narrow(0, lay[name][0], lay[name][1]).view(shape)  # noqa: E731
-    return (view("S", K, 6, K, 6), view("rhs", K, 6), view("Hll_inv", L, 3, 3),
-            view("b_l", L, 3), W)
+    return schur_views((buf, W))
+
+
+def _no_out_on_cpu(out) -> None:
+    if out is not None:
+        raise ValueError("out= takes the kernels' buffers on the card; the plain "
+                         "version allocates its outputs")
 
 
 def schur_assemble(T_wc, points_w, obs_uv, obs_w, lam, *,
-                   fx, fy, cx, cy, bq, kernel_px2=10.0, point_damping=1e-6):
+                   fx, fy, cx, cy, bq, kernel_px2=10.0, point_damping=1e-6,
+                   out=None):
     """Fused Schur assembly for ``K <= 32`` keyframes. Returns
     ``(S [K,6,K,6], rhs [K,6], Hll_inv [L,3,3], b_l [L,3], W [3,6K,L])``.
 
     ``obs_w`` is the observation mask (times any information scale) as
     float; ``lam`` a Python float or a 0-d tensor. CUDA tensors go through
-    the hand-written kernels (or raise); only CPU tensors take
-    :func:`schur_assemble_plain`.
+    the hand-written kernels (or raise), writing into ``out`` where given
+    (:func:`schur_out`); only CPU tensors take :func:`schur_assemble_plain`.
     """
     if not T_wc.is_cuda:
+        _no_out_on_cpu(out)
         return schur_assemble_plain(
             T_wc, points_w, obs_uv, obs_w, lam, fx=fx, fy=fy, cx=cx, cy=cy,
             bq=bq, kernel_px2=kernel_px2, point_damping=point_damping)
@@ -497,21 +528,22 @@ def schur_assemble(T_wc, points_w, obs_uv, obs_w, lam, *,
         raise ValueError(f"schur_assemble takes K <= {KT} keyframes, got {K}")
     return launch_schur_system(
         *_cuda_inputs(T_wc, points_w, obs_uv, obs_w, "schur_assemble"), lam,
-        (fx, fy, cx, cy, bq, kernel_px2), point_damping, tiled=False)
+        (fx, fy, cx, cy, bq, kernel_px2), point_damping, tiled=False, out=out)
 
 
 def schur_assemble_tiled(T_wc, points_w, obs_uv, obs_w, lam, *,
                          fx, fy, cx, cy, bq, kernel_px2=10.0,
-                         point_damping=1e-6):
+                         point_damping=1e-6, out=None):
     """Fused Schur assembly for ``K % 32 == 0`` keyframes. Same
     return contract as :func:`schur_assemble`, and on the card the same
     kernels; its plain version goes through per-tile partial sums of 32
     keyframes, as the TPU kernel did."""
     _check_tiled(obs_w.shape[0])
     if not T_wc.is_cuda:
+        _no_out_on_cpu(out)
         return schur_assemble_tiled_plain(
             T_wc, points_w, obs_uv, obs_w, lam, fx=fx, fy=fy, cx=cx, cy=cy,
             bq=bq, kernel_px2=kernel_px2, point_damping=point_damping)
     return launch_schur_system(
         *_cuda_inputs(T_wc, points_w, obs_uv, obs_w, "schur_assemble_tiled"), lam,
-        (fx, fy, cx, cy, bq, kernel_px2), point_damping, tiled=True)
+        (fx, fy, cx, cy, bq, kernel_px2), point_damping, tiled=True, out=out)

@@ -310,6 +310,156 @@ def test_bundle_adjust_tiled_route_on_cpu(cams):
                            use_schur_kernel=True, **kw)
 
 
+def _frozen_bundle_adjust(T_wc, points_w, obs_uv, obs_mask, cam, fix_mask, *,
+                          kernel_px2=10.0, max_iterations=10, lm_lambda0=1e-4,
+                          point_damping=1e-6, min_rel_improvement=0.01, odo_M=None,
+                          odo_w=None, grav_d=None, grav_w=None, obs_w=None,
+                          use_schur_kernel=False):
+    """``bundle_adjust``'s LM loop as it was before its buffer sets, on the
+    CPU without the collective hook: fresh tensors every iteration, the
+    accepted state rebound. Frozen here as what the sets are held to."""
+    from svi_mapper_tpu_torch.geometry import se3
+    from svi_mapper_tpu_torch.geometry.linalg import cholesky_solve_or_nan, inv3x3
+    from svi_mapper_tpu_torch.solvers.pose_graph import adjoint
+
+    dtype = points_w.dtype
+    fx, fy, cx, cy, bq = t_ba._intrinsics(cam)
+    K, L = T_wc.shape[0], points_w.shape[0]
+    maskf = obs_mask.to(dtype)
+    if obs_w is not None:
+        maskf = maskf * obs_w
+
+    def robust_w(r):
+        err2 = torch.sum(r * r, dim=-1)
+        w = torch.where(err2 > kernel_px2, kernel_px2 / torch.clamp(err2, min=1e-12),
+                        torch.ones_like(err2))
+        return w * maskf
+
+    use_odo, use_grav = odo_M is not None, grav_d is not None
+    if use_odo:
+        odo_Minv, wo = se3.inv_T(odo_M[: K - 1]), odo_w[: K - 1]
+
+    def odo_residuals(T):
+        Dk = T[1:] @ se3.inv_T(T[:-1])
+        return Dk, se3.log_se3(Dk @ odo_Minv)
+
+    def total_chi2(T, X):
+        r, _ = t_ba._residuals(T, X, obs_uv, fx, fy, cx, cy, bq)
+        c = t_ba._chi2(r, robust_w(r))
+        odo = grav = torch.zeros((), dtype=dtype)
+        if use_odo:
+            r_o = odo_residuals(T)[1]
+            odo = torch.sum(wo * torch.sum(r_o * r_o, dim=-1))
+        if use_grav:
+            r_g = -T[:, :3, 1] - grav_d
+            grav = torch.sum(grav_w * torch.sum(r_g * r_g, dim=-1))
+        return c + odo + grav
+
+    kk, eye6, free = torch.arange(K), torch.eye(6, dtype=dtype), (~fix_mask).to(dtype)
+    assemble = t_bk.schur_assemble if K <= 32 else t_bk.schur_assemble_tiled
+
+    def lm_step(T, X, lam):
+        if use_schur_kernel:
+            S, rhs, H_ll_inv, b_l, Wpl = assemble(
+                T, X, obs_uv, maskf, lam, fx=fx, fy=fy, cx=cx, cy=cy, bq=bq,
+                kernel_px2=kernel_px2, point_damping=point_damping)
+            S[kk, :, kk, :] += lam * eye6
+        else:
+            r, p_c = t_ba._residuals(T, X, obs_uv, fx, fy, cx, cy, bq)
+            w = robust_w(r) * (p_c[..., 2] > 0.05).to(dtype)
+            J_pose, J_point = t_ba._jacobians(p_c, T, fx, fy, bq)
+            Jpw4 = J_pose * w[..., None, None]
+            Jp, Jpw = J_pose.reshape(K, L * 4, 6), Jpw4.reshape(K, L * 4, 6)
+            Jl = J_point.permute(1, 0, 2, 3).reshape(L, K * 4, 3)
+            Jlw = (J_point * w[..., None, None]).permute(1, 0, 2, 3).reshape(L, K * 4, 3)
+            H_pp = Jpw.transpose(1, 2) @ Jp
+            H_ll = Jlw.transpose(1, 2) @ Jl
+            H_pl = Jpw4.transpose(-1, -2) @ J_point
+            b_p = (Jpw.transpose(1, 2) @ r.reshape(K, L * 4, 1))[..., 0]
+            b_l = (Jlw.transpose(1, 2) @ r.permute(1, 0, 2).reshape(L, K * 4, 1))[..., 0]
+            H_ll_inv = inv3x3(H_ll + (lam + point_damping) * torch.eye(3, dtype=dtype))
+            A = (H_pl @ H_ll_inv[None]).permute(0, 2, 1, 3).reshape(K * 6, L * 3)
+            B = H_pl.permute(0, 2, 1, 3).reshape(K * 6, L * 3)
+            S = (-(A @ B.T)).reshape(K, 6, K, 6)
+            rhs = b_p - (A @ b_l.reshape(L * 3)).reshape(K, 6)
+            S[kk, :, kk, :] += H_pp + lam * eye6
+        if use_odo:
+            Dk, r_o = odo_residuals(T)
+            Adj = adjoint(Dk)
+            AdjT = Adj.transpose(1, 2)
+            ks, wk = kk[: K - 1], wo[:, None, None]
+            S[ks + 1, :, ks + 1, :] += wk * eye6
+            S[ks, :, ks, :] += wk * (AdjT @ Adj)
+            S[ks, :, ks + 1, :] += -wk * AdjT
+            S[ks + 1, :, ks, :] += -wk * Adj
+            rhs[ks + 1] += wo[:, None] * r_o
+            rhs[ks] += -wo[:, None] * torch.einsum("kji,kj->ki", Adj, r_o)
+        if use_grav:
+            Rg = -T[:, :3, 1]
+            Ag = -se3.hat(Rg)
+            S[kk, 3:, kk, 3:] += grav_w[:, None, None] * (Ag.transpose(1, 2) @ Ag)
+            rhs[:, 3:] += grav_w[:, None] * torch.einsum("kji,kj->ki", Ag, Rg - grav_d)
+        Sm = S * free[:, None, None, None] * free[None, None, :, None]
+        Sm[kk, :, kk, :] += (1.0 - free)[:, None, None] * eye6
+        dp = -cholesky_solve_or_nan(Sm.reshape(K * 6, K * 6), (rhs * free[:, None]).reshape(K * 6))
+        dp = dp.reshape(K, 6) * free[:, None]
+        if use_schur_kernel:
+            Wdp = torch.einsum("bql,q->lb", Wpl, dp.reshape(K * 6))
+        else:
+            Wdp = (B.T @ dp.reshape(K * 6)).reshape(L, 3)
+        dx = -(H_ll_inv @ (b_l + Wdp)[..., None])[..., 0]
+        return se3.apply_left_update(dp, T), X + dx
+
+    T, X = T_wc, points_w
+    chi2 = chi2_init = total_chi2(T, X)
+    lam, iters = np.float32(lm_lambda0), 0
+    while iters < max_iterations:
+        T_new, X_new = lm_step(T, X, float(lam))
+        chi2_new = total_chi2(T_new, X_new)
+        accept = bool(chi2_new < chi2)
+        done = accept and bool((chi2 - chi2_new) / torch.clamp(chi2, min=1e-12)
+                               < min_rel_improvement)
+        if accept:
+            T, X, chi2 = T_new, X_new, chi2_new
+        lam = lam * np.float32(0.3) if accept else lam * np.float32(8.0)
+        iters += 1
+        if done:
+            break
+    return t_ba.BAResult(T_wc=T, points_w=X, chi2_initial=chi2_init, chi2_final=chi2,
+                         iterations=torch.tensor(iters, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("route,K,L", [("materialised", 8, 256), ("kernel", 8, 256),
+                                       ("tiled", 64, 128)])
+def test_bundle_adjust_buffer_set_keeps_the_loops_bits(cams, route, K, L):
+    """Two problems of one shape solved in turn through one buffer set, every
+    term on: each returns the bits and the iteration count of the loop as it
+    was before the sets (frozen above); the second solve leaves the first's
+    results as they were; the second problem solved alone, in a fresh set,
+    gives the same bits. On the CPU nothing is captured or replayed."""
+    _, tcam = cams
+    kw = dict(use_schur_kernel=route != "materialised", max_iterations=6)
+    problems = [tp.ba_chain_problem(K, L, seed) for seed in (21, 22)]
+    counts = t_ba.graph_counts()
+    got = [t_ba.bundle_adjust(*args, tcam, fix, device="cpu", **kw, **extra)
+           for args, fix, extra in problems]
+    first = [t.clone() for t in (got[0].T_wc, got[0].points_w)]
+    t_ba._buffer_sets.clear()
+    args, fix, extra = problems[1]
+    alone = t_ba.bundle_adjust(*args, tcam, fix, device="cpu", **kw, **extra)
+
+    fields = ("T_wc", "points_w", "chi2_initial", "chi2_final", "iterations")
+    for res, (args, fix, extra) in zip(got, problems):
+        want = _frozen_bundle_adjust(*args, tcam, fix, **kw, **extra)
+        assert 1 < int(want.iterations) <= 6
+        for f in fields:
+            assert torch.equal(getattr(res, f), getattr(want, f)), f
+    assert torch.equal(got[0].T_wc, first[0]) and torch.equal(got[0].points_w, first[1])
+    for f in fields:
+        assert torch.equal(getattr(alone, f), getattr(got[1], f)), f
+    assert t_ba.graph_counts() == counts
+
+
 def test_bundle_adjust_respects_observation_mask(cams):
     _, tcam = cams
     w = tp.ba_window(K=4, L=64, seed=2, noise=0.0, drop=0.0)

@@ -1,0 +1,96 @@
+"""The LM loop's CUDA graphs (``solvers/ba.py``): on the card, the replayed
+stages against the same stages run directly, bit for bit; the capture and
+replay counts; the SE(3) helpers the graphs reach, under capture. The tests
+marked ``gpu`` skip without a CUDA device. No JAX here: the comparisons are
+within the port (``tests/test_torch_ba.py`` holds the buffer sets to the
+loop as it was, on the CPU)."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from svi_mapper_tpu_torch.geometry import se3
+from svi_mapper_tpu_torch.io.synthetic import default_camera
+from svi_mapper_tpu_torch.ops import ba_kernel
+from svi_mapper_tpu_torch.solvers import ba
+
+# by its path: ``tests`` is a namespace package, which an installed regular
+# package of that name shadows
+_spec = importlib.util.spec_from_file_location(
+    "torch_parity", Path(__file__).with_name("torch_parity.py"))
+tp = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(tp)
+
+FIELDS = ("T_wc", "points_w", "chi2_initial", "chi2_final", "iterations")
+
+
+def _card() -> torch.device:
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _solve(dev, problem, **kw):
+    args, fix, extra = problem
+    cam = default_camera(640, 480, device=dev)
+    return ba.bundle_adjust(*[a.to(dev) for a in args], cam, fix.to(dev), device=dev,
+                            **{k: v.to(dev) for k, v in extra.items()}, **kw)
+
+
+def test_schur_out_takes_the_cards_buffers():
+    """``out=`` names the kernels' buffers on the card; the plain versions
+    allocate, and refuse it."""
+    w = tp.ba_window(K=32, L=64)
+    args = (tp.t32(w["T"]), tp.t32(w["X"]), tp.t32(w["obs"]), tp.t32(w["mask"]))
+    intr = dict(zip(("fx", "fy", "cx", "cy", "bq"), w["intr"]))
+    for fn in (ba_kernel.schur_assemble, ba_kernel.schur_assemble_tiled):
+        with pytest.raises(ValueError, match="out="):
+            fn(*args, 1e-3, **intr, out=(torch.zeros(1), torch.zeros(1)))
+
+
+@pytest.mark.gpu
+def test_replayed_stages_equal_direct_ones_on_the_card():
+    """Three solves of one shape (K4) and one of another (K5), every term
+    on: the replayed route returns the direct route's bits (the direct route
+    reached through an identity collective hook), with one capture set per
+    shape and three replays an iteration plus one a solve."""
+    dev = _card()
+    problems = [tp.ba_chain_problem(32, 1024, seed) for seed in (31, 32, 33)]
+    problems.append(tp.ba_chain_problem(64, 512, 34))
+    ba.reset_graph_counts()
+    replayed = [_solve(dev, p) for p in problems]
+    counts = ba.graph_counts()
+    direct = [_solve(dev, p, _landmark_sum=lambda *t: t) for p in problems]
+    assert ba.graph_counts() == counts
+    for a, b in zip(replayed, direct):
+        assert int(a.iterations) > 1
+        for f in FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    iterations = sum(int(r.iterations) for r in replayed)
+    assert counts == {"graph_capture": 2,
+                      "graph_replay": 3 * iterations + len(problems)}
+
+
+@pytest.mark.gpu
+def test_se3_helpers_run_under_capture():
+    """``make_T`` (its bottom row made on the device), ``inv_T`` and
+    ``apply_left_update`` are captured and replay the eager bits; a row made
+    during the capture is not kept."""
+    dev = _card()
+    g = torch.Generator().manual_seed(5)
+    xi = (0.1 * torch.randn(16, 6, generator=g)).to(dev)
+    T = se3.exp_se3((0.5 * torch.randn(16, 6, generator=g)).to(dev))
+    se3._bottom_rows.clear()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = (se3.make_T(T[:, :3, :3], T[:, :3, 3]), se3.inv_T(T),
+               se3.apply_left_update(xi, T))
+    assert (dev, T.dtype) not in se3._bottom_rows
+    graph.replay()
+    want = (se3.make_T(T[:, :3, :3], T[:, :3, 3]), se3.inv_T(T), se3.apply_left_update(xi, T))
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+    assert torch.equal(out[0], T)
+    assert torch.equal(se3._bottom_rows[(dev, T.dtype)].cpu(), torch.tensor([0.0, 0.0, 0.0, 1.0]))

@@ -182,6 +182,23 @@ def ba_window(K=8, L=640, seed=0, noise=1.5, drop=0.2, width=640, height=480,
                 obs=obs.astype(np.float32), mask=mask, fix=fix)
 
 
+def ba_chain_problem(K, L, seed):
+    """A :func:`ba_window` with every term of ``bundle_adjust`` on: the pose
+    chain, the gravity unaries and per-observation weights. Returns
+    ``(args, fix_mask, keywords)`` as CPU tensors: ``args`` is ``(T_wc,
+    points_w, obs_uv, obs_mask)``."""
+    w = ba_window(K=K, L=L, seed=seed, noise=0.5, pose_noise=0.01)
+    rng = np.random.default_rng(seed + 100)
+    M = np.stack([exp_se3_np(rng.normal(0, 0.01, 6)) @ w["T_true"][min(k + 1, K - 1)]
+                  @ np.linalg.inv(w["T_true"][k]) for k in range(K)])
+    d = -w["T_true"][:, :3, 1] + rng.normal(0, 0.01, (K, 3))
+    args = (t32(w["T"]), t32(w["X"]), t32(w["obs"]), tbool(w["mask"]))
+    kw = dict(odo_M=t32(M), odo_w=torch.full((K,), 50.0),
+              grav_d=t32(d / np.linalg.norm(d, axis=1, keepdims=True)),
+              grav_w=torch.full((K,), 100.0), obs_w=t32(rng.uniform(0.3, 2.0, (K, L))))
+    return args, tbool(w["fix"]), kw
+
+
 def pose_chain(rng, n, step=0.8, noise=0.0):
     """Ground-truth pose chain and an odometry estimate with per-step noise:
     ``(T_true [n,4,4], T_est [n,4,4])`` float32."""
