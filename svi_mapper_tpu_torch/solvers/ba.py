@@ -16,10 +16,15 @@ block-dense and batched:
 Gauge freedom is fixed by masking updates of designated poses
 (``fix_mask``), the analog of g2o's setFixed (Cg2oOptimizer.cpp:342-360).
 
-Two routes to the Schur system: the fused assembly of ``ops.ba_kernel``
+Three routes to the Schur system: the fused assembly of ``ops.ba_kernel``
 (hand-written CUDA kernels K4 / K5 on the card, their plain versions on the
-CPU) and the materialised-Jacobian route, which is the route for windows the
-kernels do not take and the default on the CPU.
+CPU); the observation-list route, for windows past the kernels' largest
+(``SCHUR_KERNEL_TILED_MAX_K``) on every device: the ``[K, L]`` mask becomes
+a list of the observed pairs and of each landmark's co-visible keyframe
+pairs once a solve, and ``S`` is summed over those pairs, so that a whole
+map (hundreds of keyframes, ~1 % of the ``[K, L]`` slots observed) holds
+no ``[K, L]`` tensor beyond its inputs; and the materialised-Jacobian
+route, for the other windows and the default on the CPU.
 
 The LM loop is a Python loop. One iteration reads two flags (accept, done)
 from the device in ONE transfer; the damping ``lam`` lives on the host as a
@@ -43,13 +48,17 @@ and replays.
 
 Spans (``eval.timing.span``; nothing unless a profiler runs or a timer
 records) mark the call's stages, all with the call's request id:
-``svi.ba.solve`` the call; ``svi.ba.chi2`` each ``total_chi2``;
+``svi.ba.solve`` the call; ``svi.ba.obs_list`` the observation-list
+route's lists (once a solve); ``svi.ba.chi2`` each ``total_chi2``;
 ``svi.ba.iteration`` one LM iteration, holding in order ``svi.ba.assemble``
-(the Schur system and its damping), ``svi.ba.priors`` (the pose chain and
+(the Schur system and its damping; on the observation-list route its
+child ``svi.ba.pair_product`` sums ``S`` over the co-visible pairs),
+``svi.ba.priors`` (the pose chain and
 the gravity terms), ``svi.ba.linear_solve`` (gauge fixing and the
 Cholesky), ``svi.ba.update`` (back-substitution and the pose update),
 ``svi.ba.chi2`` (the proposal's) and ``svi.ba.flag_read`` (the one host
-read). A replayed stage runs inside its span.
+read). A replayed stage runs inside its span. :func:`obs_route_counts`
+counts the observation-list route's solves, lists and buffer sets.
 """
 
 from __future__ import annotations
@@ -74,7 +83,8 @@ from svi_mapper_tpu_torch.utils.device import require_fp32_matmul, resolve_devic
 # largest keyframe window the single-pass fused kernel
 # (ops.ba_kernel.schur_assemble) takes; windows past it use the K-tiled
 # kernel (schur_assemble_tiled, 32 keyframes per tile) up to
-# SCHUR_KERNEL_TILED_MAX_K; anything else takes the materialised route.
+# SCHUR_KERNEL_TILED_MAX_K; windows past that take the observation-list
+# route, anything else the materialised route.
 SCHUR_KERNEL_MAX_K = 32
 SCHUR_KERNEL_TILED_MAX_K = 128
 
@@ -100,9 +110,9 @@ class BAResult:
     iterations: torch.Tensor
 
 
-def _residuals(T_wc, X, obs_uv, fx, fy, cx, cy, bq):
-    """r [K,L,4], p_cam [K,L,3] for all observation pairs."""
-    p_c = torch.einsum("kij,lj->kli", T_wc[:, :3, :3], X) + T_wc[:, None, :3, 3]
+def _project(p_c, obs_uv, fx, fy, cx, cy, bq):
+    """The stereo residuals ``[u_l, v_l, u_r, v_l] - obs`` of camera-frame
+    points ``p_c [..., 3]``."""
     x, y, z = p_c[..., 0], p_c[..., 1], p_c[..., 2]
     safe_z = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
     iz = 1.0 / safe_z
@@ -110,11 +120,29 @@ def _residuals(T_wc, X, obs_uv, fx, fy, cx, cy, bq):
     v_l = fy * y * iz + cy
     u_r = (fx * x + bq) * iz + cx
     pred = torch.stack([u_l, v_l, u_r, v_l], dim=-1)
-    return pred - obs_uv, p_c
+    return pred - obs_uv
+
+
+def _residuals(T_wc, X, obs_uv, fx, fy, cx, cy, bq):
+    """r [K,L,4], p_cam [K,L,3] for all observation pairs."""
+    p_c = torch.einsum("kij,lj->kli", T_wc[:, :3, :3], X) + T_wc[:, None, :3, 3]
+    return _project(p_c, obs_uv, fx, fy, cx, cy, bq), p_c
 
 
 def _jacobians(p_c, T_wc, fx, fy, bq):
     """J_pose [K,L,4,6] (left-mult se3 of T_k), J_point [K,L,4,3] (world X)."""
+    J_uv = _uv_jacobian(p_c, fx, fy, bq)
+    eye = torch.eye(3, dtype=p_c.dtype, device=p_c.device).expand(
+        p_c.shape[:-1] + (3, 3))
+    J_pc = torch.cat([eye, -se3.hat(p_c)], dim=-1)                # [K,L,3,6]
+    J_pose = J_uv @ J_pc
+    # d p_c / d X_world = R_k
+    J_point = torch.einsum("klri,kij->klrj", J_uv, T_wc[:, :3, :3])
+    return J_pose, J_point
+
+
+def _uv_jacobian(p_c, fx, fy, bq):
+    """d r / d p_c ``[..., 4, 3]`` at camera-frame points ``p_c [..., 3]``."""
     x, y, z = p_c[..., 0], p_c[..., 1], p_c[..., 2]
     safe_z = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
     iz = 1.0 / safe_z
@@ -123,14 +151,7 @@ def _jacobians(p_c, T_wc, fx, fy, bq):
     J_ul = torch.stack([fx * iz, zr, -fx * x * iz2], dim=-1)
     J_vl = torch.stack([zr, fy * iz, -fy * y * iz2], dim=-1)
     J_ur = torch.stack([fx * iz, zr, -(fx * x + bq) * iz2], dim=-1)
-    J_uv = torch.stack([J_ul, J_vl, J_ur, J_vl], dim=-2)          # [K,L,4,3]
-    eye = torch.eye(3, dtype=p_c.dtype, device=p_c.device).expand(
-        p_c.shape[:-1] + (3, 3))
-    J_pc = torch.cat([eye, -se3.hat(p_c)], dim=-1)                # [K,L,3,6]
-    J_pose = J_uv @ J_pc
-    # d p_c / d X_world = R_k
-    J_point = torch.einsum("klri,kij->klrj", J_uv, T_wc[:, :3, :3])
-    return J_pose, J_point
+    return torch.stack([J_ul, J_vl, J_ur, J_vl], dim=-2)          # [K,L,4,3]
 
 
 def _chi2(r, w_mask):
@@ -185,7 +206,7 @@ class _LMBuffers:
     STAGES = ("priors", "update", "total_chi2")    # in the order an iteration runs them
 
     def __init__(self, dev, dtype, K, L, intrinsics, kernel_px2, use_kernel,
-                 use_odo, use_grav):
+                 use_odo, use_grav, dense=True):
         z = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)  # noqa: E731
         self.dev, self.K, self.L = dev, K, L
         self.intrinsics, self.kernel_px2 = intrinsics, kernel_px2
@@ -193,7 +214,9 @@ class _LMBuffers:
         self.T, self.T_new = z(K, 4, 4), z(K, 4, 4)
         self.X, self.X_new = z(L, 3), z(L, 3)
         self.chi2, self.chi2_new = z(), z()
-        self.obs_uv, self.maskf, self.free, self.dp = z(K, L, 4), z(K, L), z(K), z(K, 6)
+        self.free, self.dp = z(K), z(K, 6)
+        if dense:
+            self.obs_uv, self.maskf = z(K, L, 4), z(K, L)
         self.odo_Minv, self.wo = z(max(K - 1, 0), 4, 4), z(max(K - 1, 0))
         self.grav_d, self.grav_w = z(K, 3), z(K)
         self.schur_out = None
@@ -204,22 +227,27 @@ class _LMBuffers:
         else:
             self.S, self.rhs = z(K, 6, K, 6), z(K, 6)
             self.Hll_inv, self.b_l = z(L, 3, 3), z(L, 3)
-            self.W = z(3, 6 * K, L) if use_kernel else z(6 * K, 3 * L)
+            if dense:
+                self.W = z(3, 6 * K, L) if use_kernel else z(6 * K, 3 * L)
         self.kk = torch.arange(K, device=dev)
         self.eye6 = torch.eye(6, dtype=dtype, device=dev)
         self.landmark_sum = None
+        self.request = None                           # the solve's, for its spans
         self.graphs: dict[str, torch.cuda.CUDAGraph] = {}
 
     # -- a solve's inputs and the accepted state ------------------------------
     def load(self, T_wc, points_w, obs_uv, obs_mask, obs_w, fix_mask, odo_Minv,
              wo, grav_d, grav_w) -> None:
         """Copy a solve's inputs in; the start is the proposal to score."""
-        self.T_new.copy_(T_wc)
-        self.X_new.copy_(points_w)
         self.obs_uv.copy_(obs_uv)
         self.maskf.copy_(obs_mask)
         if obs_w is not None:
             self.maskf.mul_(obs_w)
+        self._load_state(T_wc, points_w, fix_mask, odo_Minv, wo, grav_d, grav_w)
+
+    def _load_state(self, T_wc, points_w, fix_mask, odo_Minv, wo, grav_d, grav_w) -> None:
+        self.T_new.copy_(T_wc)
+        self.X_new.copy_(points_w)
         self.free.copy_(~fix_mask)
         if self.use_odo:
             self.odo_Minv.copy_(odo_Minv)
@@ -424,15 +452,261 @@ class _LMBuffers:
             _count("graph_replay")
 
 
-def _buffers(key, make) -> _LMBuffers:
-    """The buffer set of ``key``, made by ``make()`` the first time; the
-    least recently used set beyond :data:`LM_BUFFER_SETS` is dropped."""
+# ---------------------------------------------------------------------------
+# the observation-list route
+# ---------------------------------------------------------------------------
+
+# co-visible pairs are summed into S in chunks of this many, each run of one
+# keyframe pair padded to whole chunks
+PAIR_CHUNK = 32
+
+_obs_counts = {"solves": 0, "observations": 0, "pairs": 0, "buffer_sets": 0}
+
+
+def obs_route_counts() -> dict[str, int]:
+    """The observation-list route since the last
+    :func:`reset_obs_route_counts`, over every thread: solves, the
+    observations and co-visible pairs (one per landmark and pair of its
+    keyframes, itself with itself included) they listed, and the buffer
+    sets made for it."""
+    with _lock:
+        return dict(_obs_counts)
+
+
+def reset_obs_route_counts() -> None:
+    with _lock:
+        _obs_counts.update(solves=0, observations=0, pairs=0, buffer_sets=0)
+
+
+def _capacity(n: int) -> int:
+    """A capacity strictly above ``n``, on a grid of 8 to 16 steps per power
+    of two: problems of one shape whose counts differ by a little share it,
+    and one padding slot always exists."""
+    e = max(int(n).bit_length() - 4, 0)
+    return ((int(n) >> e) + 1) << e
+
+
+@dataclasses.dataclass
+class _ObsLists:
+    """A ``[K, L]`` mask as lists (``-1`` pads the tables).
+
+    ``k`` / ``l``: the observations, by landmark, then keyframe.
+    ``lm_slots [L, n]``, ``kf_slots [K, m]``: each landmark's and each
+    keyframe's observations. ``pair_a`` / ``pair_b``: the co-visible pairs
+    (observations ``a <= b`` of one landmark), sorted by keyframe pair and
+    each keyframe pair's run padded to whole chunks of :data:`PAIR_CHUNK`.
+    ``seg_chunks [S, c]``: each keyframe pair's chunks; ``seg_rows`` its
+    row ``k_a K + k_b`` of the flat block grid, ``seg_rows_t`` that of its
+    transpose (``-1`` on the diagonal)."""
+    k: torch.Tensor
+    l: torch.Tensor
+    lm_slots: torch.Tensor
+    kf_slots: torch.Tensor
+    pair_a: torch.Tensor
+    pair_b: torch.Tensor
+    seg_chunks: torch.Tensor
+    seg_rows: torch.Tensor
+    seg_rows_t: torch.Tensor
+    pairs: int
+
+    @property
+    def capacities(self) -> tuple[int, ...]:
+        """What a buffer set holding these lists is sized by."""
+        return (_capacity(self.k.numel()), _capacity(self.lm_slots.shape[1]),
+                _capacity(self.kf_slots.shape[1]),
+                _capacity(self.pair_a.numel() // PAIR_CHUNK),
+                _capacity(self.seg_rows.numel()), _capacity(self.seg_chunks.shape[1]))
+
+
+def _slot_table(rows: int, row: torch.Tensor, col: torch.Tensor, value: torch.Tensor,
+                width: int) -> torch.Tensor:
+    table = torch.full((rows, max(width, 1)), -1, dtype=torch.int64, device=row.device)
+    table[row, col] = value
+    return table
+
+
+def _observation_lists(obs_mask: torch.Tensor) -> _ObsLists:
+    """The lists of one solve, made on the mask's device (a few host reads
+    of their lengths). Every order here is fixed by the mask alone."""
+    K, L = obs_mask.shape
+    dev = obs_mask.device
+    lk = torch.nonzero(obs_mask.t() != 0)              # by landmark, then keyframe
+    l, k = lk[:, 0].contiguous(), lk[:, 1].contiguous()
+    N = l.numel()
+    ar = torch.arange(N, device=dev)
+    n_l = torch.bincount(l, minlength=L)
+    pos_l = ar - (torch.cumsum(n_l, 0) - n_l)[l]
+    by_k = torch.argsort(k, stable=True)
+    m_k = torch.bincount(k, minlength=K)
+    pos_k = ar - (torch.cumsum(m_k, 0) - m_k)[k[by_k]]
+    partners = n_l[l] - pos_l                        # b = a .. the landmark's last
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    n_max, m_max, P = torch.stack([torch.cat([n_l, zero]).max(), torch.cat([m_k, zero]).max(),
+                                   partners.sum()]).tolist()
+
+    a = torch.repeat_interleave(ar, partners, output_size=P)
+    b = a + torch.arange(P, device=dev) - (torch.cumsum(partners, 0) - partners)[a]
+    key, order = torch.sort(k[a] * K + k[b], stable=True)
+    a, b = a[order], b[order]
+    rows, run = torch.unique_consecutive(key, return_counts=True)
+    S = rows.numel()
+    chunks = (run + PAIR_CHUNK - 1) // PAIR_CHUNK
+    chunk0 = torch.cumsum(chunks, 0) - chunks
+    seg = torch.repeat_interleave(torch.arange(S, device=dev), run, output_size=P)
+    within = torch.arange(P, device=dev) - (torch.cumsum(run, 0) - run)[seg]
+    slot = chunk0[seg] * PAIR_CHUNK + within
+    n_chunks, c_max = torch.stack([chunks.sum(), torch.cat([chunks, zero]).max()]).tolist()
+    pair_a = torch.full((n_chunks * PAIR_CHUNK,), -1, dtype=torch.int64, device=dev)
+    pair_b = pair_a.clone()
+    pair_a[slot], pair_b[slot] = a, b
+    j = torch.arange(max(c_max, 1), device=dev)
+    seg_chunks = torch.where(j < chunks[:, None], chunk0[:, None] + j, -1)
+    ka, kb = rows // K, rows % K
+    return _ObsLists(
+        k=k, l=l, lm_slots=_slot_table(L, l, pos_l, ar, n_max),
+        kf_slots=_slot_table(K, k[by_k], pos_k, by_k, m_max),
+        pair_a=pair_a, pair_b=pair_b, seg_chunks=seg_chunks, seg_rows=rows,
+        seg_rows_t=torch.where(ka != kb, kb * K + ka, -1), pairs=P)
+
+
+class _ObsBuffers(_LMBuffers):
+    """The buffer set of the observation-list route: the observations as a
+    list padded to a capacity (padding at weight 0), the reduced camera
+    system summed over co-visible pairs. No ``[K, L]`` tensor is held; one
+    set serves every problem of its shape whose lists fit its capacities,
+    and a problem whose lists do not fit replaces it with a set that holds
+    both, so a ring of problems settles on one set.
+
+    Per landmark and per keyframe, sums run over slot tables (a fixed
+    order); ``S`` is summed over each keyframe pair's chunks of pair
+    blocks, then over its chunks: the same mask gives the same bits."""
+
+    def __init__(self, dev, dtype, K, L, intrinsics, kernel_px2, use_odo, use_grav,
+                 capacities):
+        super().__init__(dev, dtype, K, L, intrinsics, kernel_px2, False, use_odo, use_grav,
+                         dense=False)
+        n, n_l, n_k, n_chunks, n_seg, n_c = capacities
+        z = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)  # noqa: E731
+        i = lambda *shape: torch.zeros(shape, dtype=torch.int64, device=dev)  # noqa: E731
+        self.capacities = capacities
+        self.k_idx, self.l_idx = i(n), i(n)
+        self.obs_uv, self.maskf = z(n, 4), z(n)
+        self.lm_slots, self.kf_slots = i(L, n_l), i(K, n_k)
+        self.pair_a, self.pair_b = i(n_chunks * PAIR_CHUNK), i(n_chunks * PAIR_CHUNK)
+        self.seg_chunks, self.seg_rows, self.seg_rows_t = i(n_seg, n_c), i(n_seg), i(n_seg)
+        self.S_rows = z(K * K + 1, 36)                 # the flat block grid and a spare row
+        self.W = z(n, 6, 3)
+        with _lock:
+            _obs_counts["buffer_sets"] += 1
+
+    def load(self, T_wc, points_w, obs_uv, obs_mask, obs_w, fix_mask, odo_Minv,
+             wo, grav_d, grav_w, lists: _ObsLists = None) -> None:
+        n = lists.k.numel()
+        spare_obs = self.k_idx.numel() - 1             # a padding observation
+        spare_chunk = self.pair_a.numel() // PAIR_CHUNK - 1
+        spare_row = self.S_rows.shape[0] - 1
+
+        def put(dst, src, spare):
+            dst.fill_(spare)
+            dst[tuple(slice(0, s) for s in src.shape)] = torch.where(src < 0, spare, src)
+
+        for dst, src in ((self.k_idx, lists.k), (self.l_idx, lists.l)):
+            put(dst, src, 0)
+        for dst, src in ((self.lm_slots, lists.lm_slots), (self.kf_slots, lists.kf_slots),
+                         (self.pair_a, lists.pair_a), (self.pair_b, lists.pair_b)):
+            put(dst, src, spare_obs)
+        put(self.seg_chunks, lists.seg_chunks, spare_chunk)
+        put(self.seg_rows, lists.seg_rows, spare_row)
+        put(self.seg_rows_t, lists.seg_rows_t, spare_row)
+        self.obs_uv.zero_()
+        self.obs_uv[:n] = obs_uv[lists.k, lists.l]
+        self.maskf.zero_()
+        self.maskf[:n] = obs_mask[lists.k, lists.l]
+        if obs_w is not None:
+            self.maskf[:n] *= obs_w[lists.k, lists.l]
+        self.S_rows.zero_()
+        self._load_state(T_wc, points_w, fix_mask, odo_Minv, wo, grav_d, grav_w)
+
+    def _camera_points(self, T, X):
+        """Each listed observation's rotation ``[N, 3, 3]`` and point in its
+        camera ``[N, 3]``."""
+        R = T[self.k_idx, :3, :3]
+        return R, (R * X[self.l_idx][:, None, :]).sum(-1) + T[self.k_idx, :3, 3]
+
+    def assemble(self, lam: float, point_damping: float) -> None:
+        # the products per observation are a few elements wide, so they are
+        # written out as broadcast products and sums, not batched matmuls
+        T, X, K, L = self.T, self.X, self.K, self.L
+        kk, eye6 = self.kk, self.eye6
+        fx, fy, cx, cy, bq = self.intrinsics
+        dtype = X.dtype
+        R, p_c = self._camera_points(T, X)
+        r = _project(p_c, self.obs_uv, fx, fy, cx, cy, bq)             # [N,4]
+        w = self.robust_w(r) * (p_c[:, 2] > 0.05).to(dtype)
+        J_uv = _uv_jacobian(p_c, fx, fy, bq)
+        # J_pose = J_uv [I | -hat(p_c)] = [J_uv | p_c x J_uv], J_point = J_uv R
+        G = torch.cat([J_uv, torch.linalg.cross(p_c[:, None, :].expand_as(J_uv), J_uv, dim=-1),
+                       (J_uv[:, :, :, None] * R[:, None, :, :]).sum(2), r[..., None]], -1)
+        # rows pose (6) and point (3) of sum_r w G_r G_r^T: [H_pp H_pl b_p; . H_ll b_l]
+        M = ((G[:, :, :9] * w[:, None, None])[..., None] * G[:, :, None, :]).sum(1)
+        H_pl = M[:, :6, 6:9]                                           # [N,6,3]
+
+        per_l = M[:, 6:9, 6:].reshape(-1, 12)[self.lm_slots].sum(1).reshape(L, 3, 4)
+        H_ll = per_l[..., :3] + (lam + point_damping) * torch.eye(3, dtype=dtype, device=X.device)
+        b_l = per_l[..., 3]
+        H_ll_inv = _inv3x3(H_ll)                                       # [L,3,3]
+        C = (H_pl[:, :, :, None] * H_ll_inv[self.l_idx][:, None, :, :]).sum(2)  # W Hll^-1
+        rhs_i = M[:, :6, 9] - (C * b_l[self.l_idx][:, None, :]).sum(-1)
+        per_k = torch.cat([M[:, :6, :6].reshape(-1, 36), rhs_i], 1)[self.kf_slots].sum(1)
+        H_pp, rhs = per_k[:, :36].reshape(K, 6, 6), per_k[:, 36:]
+
+        with span("svi.ba.pair_product", self.request):
+            # S_ab = -sum over the landmarks a and b share of C_a W_b^T: one
+            # [6, 3 PAIR_CHUNK] x [3 PAIR_CHUNK, 6] product a chunk, then the
+            # sum of each keyframe pair's chunks
+            n = self.pair_a.numel() // PAIR_CHUNK
+            Ct = C.transpose(1, 2).contiguous()[self.pair_a].view(n, 3 * PAIR_CHUNK, 6)
+            Wt = H_pl.transpose(1, 2).contiguous()[self.pair_b].view(n, 3 * PAIR_CHUNK, 6)
+            chunks = torch.bmm(Ct.transpose(1, 2), Wt).reshape(n, 36)
+            runs = chunks[self.seg_chunks].sum(1)                      # [pairs of keyframes,36]
+            self.S_rows[self.seg_rows] = -runs
+            self.S_rows[self.seg_rows_t] = -runs.reshape(-1, 6, 6).transpose(1, 2).reshape(-1, 36)
+            S = self.S_rows[: K * K].reshape(K, K, 6, 6).permute(0, 2, 1, 3)
+        if self.landmark_sum is not None:
+            S, H_pp, rhs = self.landmark_sum(S, H_pp, rhs)
+        self.S.copy_(S)
+        self.S[kk, :, kk, :] += H_pp + lam * eye6
+        for dst, src in ((self.rhs, rhs), (self.Hll_inv, H_ll_inv), (self.b_l, b_l),
+                         (self.W, H_pl)):
+            dst.copy_(src)
+
+    def update(self) -> None:
+        dp = self.dp
+        Wdp = (self.W * dp[self.k_idx][:, :, None]).sum(1)             # W^T dp [N,3]
+        dx = -(self.Hll_inv * (self.b_l + Wdp[self.lm_slots].sum(1))[:, None, :]).sum(-1)
+        self.T_new, self.X_new = se3.apply_left_update(dp, self.T), self.X + dx
+
+    def total_chi2(self) -> None:
+        T, X = self.T_new, self.X_new
+        _, p_c = self._camera_points(T, X)
+        r = _project(p_c, self.obs_uv, *self.intrinsics)
+        chi2_l = _chi2(r, self.robust_w(r))
+        if self.landmark_sum is not None:
+            (chi2_l,) = self.landmark_sum(chi2_l)
+        self.chi2_new = chi2_l + self.odo_chi2(T) + self.grav_chi2(T)
+
+
+def _buffers(key, make, fits=None) -> _LMBuffers:
+    """The buffer set of ``key``, made by ``make(old)`` the first time or
+    where the set there does not ``fit`` (``old`` is that set, or ``None``;
+    the new set replaces it); the least recently used set beyond
+    :data:`LM_BUFFER_SETS` is dropped."""
     with _lock:
         lm = _buffer_sets.get(key)
-        if lm is not None:
+        if lm is not None and (fits is None or fits(lm)):
             _buffer_sets.move_to_end(key)
             return lm
-    lm = make()
+    lm = make(lm)
     with _lock:
         _buffer_sets[key] = lm
         while len(_buffer_sets) > LM_BUFFER_SETS:
@@ -479,11 +753,14 @@ def bundle_adjust(
 ) -> BAResult:
     """Windowed bundle adjustment. ``device=None`` means CUDA (raises
     without one); inputs are moved there and taken in the landmarks' dtype.
-    With ``use_schur_kernel=None`` on a CUDA device: K <= 32 goes through
-    kernel K4, K % 32 == 0 and K <= 128 through K5, anything else through
-    the materialised route. A kernel that fails to build or launch raises;
-    nothing gives way to another route. The results are the caller's own
-    tensors: a later call does not write into them.
+    With ``use_schur_kernel=None``: K > 128 goes through the
+    observation-list route on every device; on a CUDA device K <= 32 goes
+    through kernel K4, K % 32 == 0 and K <= 128 through K5, anything else
+    through the materialised route (the CPU's route for K <= 128).
+    ``use_schur_kernel=False`` takes the materialised route at any K. A
+    kernel that fails to build or launch raises; nothing gives way to
+    another route. The results are the caller's own tensors: a later call
+    does not write into them.
 
     ``_landmark_sum`` is the hook of ``parallel.sharded_ba``: a function
     that takes tensors summed over this call's landmarks and returns their
@@ -512,8 +789,17 @@ def bundle_adjust(
             wo = _on(odo_w, dev, dtype)[: K - 1]
         if use_schur_kernel is None:
             use_kernel = schur_kernel_auto(K, dtype, dev)
+            use_obs = not use_kernel and K > SCHUR_KERNEL_TILED_MAX_K
         else:
-            use_kernel = bool(use_schur_kernel)
+            use_kernel, use_obs = bool(use_schur_kernel), False
+        lists = None
+        if use_obs:
+            with span("svi.ba.obs_list", rid):
+                lists = _observation_lists(obs_mask)
+            with _lock:
+                _obs_counts["solves"] += 1
+                _obs_counts["observations"] += lists.k.numel()
+                _obs_counts["pairs"] += lists.pairs
         # a replay runs no operator in Python: not under the collective
         # hook, nor under a dispatch mode (the flop counter) that counts them
         replay = (dev.type == "cuda" and _landmark_sum is None
@@ -521,14 +807,26 @@ def bundle_adjust(
         intrinsics = _intrinsics(cam)
         # everything the stages take from the call: direct and replayed
         # sets are kept apart, since a direct run rebinds the outputs
-        key = (dev, threading.get_ident(), K, L, dtype, use_kernel, use_odo,
+        key = (dev, threading.get_ident(), K, L, dtype, use_kernel, use_obs, use_odo,
                use_grav, intrinsics, kernel_px2, replay)
-        lm = _buffers(key, lambda: _LMBuffers(dev, dtype, K, L, intrinsics, kernel_px2,
-                                              use_kernel, use_odo, use_grav))
+        if use_obs:
+            # a set whose capacities hold these lists serves them; else one
+            # that holds these and the last set's replaces it
+            need = lists.capacities
+            lm = _buffers(
+                key, lambda old: _ObsBuffers(
+                    dev, dtype, K, L, intrinsics, kernel_px2, use_odo, use_grav,
+                    need if old is None else tuple(map(max, need, old.capacities))),
+                fits=lambda lm: all(map(int.__ge__, lm.capacities, need)))
+        else:
+            lm = _buffers(key, lambda _: _LMBuffers(dev, dtype, K, L, intrinsics, kernel_px2,
+                                                    use_kernel, use_odo, use_grav))
+        lm.request = rid
         if replay and not lm.graphs:
             lm.capture()
         lm.load(T_wc, points_w, obs_uv, obs_mask, _on(obs_w, dev, dtype),
-                fix_mask, odo_Minv, wo, _on(grav_d, dev, dtype), _on(grav_w, dev, dtype))
+                fix_mask, odo_Minv, wo, _on(grav_d, dev, dtype), _on(grav_w, dev, dtype),
+                **({"lists": lists} if use_obs else {}))
         lm.landmark_sum = _landmark_sum
 
         with span("svi.ba.chi2", rid):

@@ -94,3 +94,50 @@ def test_se3_helpers_run_under_capture():
         assert torch.equal(a, b)
     assert torch.equal(out[0], T)
     assert torch.equal(se3._bottom_rows[(dev, T.dtype)].cpu(), torch.tensor([0.0, 0.0, 0.0, 1.0]))
+
+
+@pytest.mark.gpu
+def test_list_route_replays_its_direct_bits_on_the_card():
+    """Two 136-keyframe circuits through the observation-list route, solved
+    twice in turn: the ring settles on one buffer set (no set made and
+    nothing captured in the second round), and the replayed stages give the
+    bits of the same stages run directly (through an identity collective
+    hook) in a set of the same capacities; three replays an iteration plus
+    one a solve."""
+    from portbench import manifest
+    from portbench.circuit import make_ring
+
+    dev = _card()
+    c = manifest.cell(manifest.load(), "kitti00-sv-fullmap.global-ba")
+    cfg = {**c["config"], "map": {**c["config"]["map"], "keyframes": 136, "landmarks": 3000}}
+    ring = make_ring(c["traffic"], cfg, 2**33 + 5, dev)
+    from svi_mapper_tpu_torch.geometry.camera import StereoCamera, pinhole_from_projection
+
+    k = cfg["camera"]
+    cam = StereoCamera(*(pinhole_from_projection(k[f"{side}_projection"], k["width"],
+                                                 k["height"], device=dev)
+                         for side in ("left", "right")))
+
+    def solve(p, **kw):
+        return ba.bundle_adjust(p.T, p.X, p.obs, p.mask, cam, p.fix, odo_M=p.odo_M,
+                                odo_w=p.odo_w, max_iterations=6, device=dev, **kw)
+
+    def rounds(**kw):
+        first = [solve(p, **kw) for p in ring]
+        counts = (ba.graph_counts()["graph_capture"], ba.obs_route_counts()["buffer_sets"])
+        return first, [solve(p, **kw) for p in ring], counts
+
+    ba._buffer_sets.clear()
+    ba.reset_graph_counts()
+    ba.reset_obs_route_counts()
+    _, replayed, counts = rounds()
+    assert counts[0] == counts[1] >= 1
+    assert ba.graph_counts()["graph_capture"] == counts[0]
+    assert ba.obs_route_counts()["buffer_sets"] == counts[1]
+    iterations = sum(int(r.iterations) for r in replayed)
+    _, direct, _ = rounds(_landmark_sum=lambda *t: t)
+    for a, b in zip(replayed, direct):
+        assert int(a.iterations) > 1
+        for f in FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert ba.graph_counts()["graph_replay"] == 2 * (3 * iterations + len(ring))
