@@ -1182,12 +1182,39 @@ def padded_ba_problem(K0: int, K: int, L0: int, L: int, seed: int):
     return dict(p, T=T, X0=X0, obs=obs, mask=mask)
 
 
+def segment_ba_problem(K: int, L: int, seed: int):
+    """``ba_problem(K, L, hard=True)`` as a map segment observes it: each
+    landmark seen by a run of 3 to 15 consecutive keyframes (the five
+    landmarks near the plane of the camera by the last four), in random
+    order, so that once ordered by first observing keyframe most (keyframe
+    group pair, slab) products of K5 are not live, some tiles of groups
+    have none, and a tile's live slabs have gaps."""
+    import numpy as np
+
+    p = ba_problem(K, L, seed=seed, noise=1.5, point_noise=0.1, hard=True)
+    rng = np.random.default_rng(seed + 1)
+    first = rng.integers(0, K, L)
+    span = rng.integers(3, 16, L)
+    first[7:12], span[7:12] = max(K - 4, 0), 4
+    k = np.arange(K)[:, None]
+    return dict(p, mask=p["mask"] & (k >= first) & (k < first + span))
+
+
 # the design's three kernels, as the trace names them
 SCHUR_KERNELS = ("schur_assembly_kernel", "schur_product_kernel", "schur_reduce_kernel")
 
 
 def check_schur_kernel(device, name: str, K: int, L: int, timed: bool,
-                       padded: bool = False) -> dict:
+                       padded: bool = False, segment: bool = False,
+                       ordered: bool = False) -> dict:
+    """K4 or K5 at ``[K, L]`` against the plain version (``SCHUR_TOL``) and
+    no further from float64 than it, the same bits twice, on
+    ``ba_problem``'s box of landmarks (``padded``: as ``models.slam`` pads
+    a window; ``segment``: ``segment_ba_problem``'s visibility). With
+    ``ordered`` the landmarks are put in ``landmark_order``'s order first,
+    as ``solvers.ba`` loads a solve on the card. The wrapper makes its own
+    schedule for the first call; the second call and the timed ones take a
+    schedule made once, as the solver's buffer set holds one a solve."""
     import torch
 
     from svi_mapper_tpu_torch.ops import ba_kernel, paths
@@ -1199,11 +1226,17 @@ def check_schur_kernel(device, name: str, K: int, L: int, timed: bool,
     }[name]
     if padded:
         p = padded_ba_problem(K // 2 + 3, K, L * 3 // 4 - 5, L, seed=29 + K)
+    elif segment:
+        p = segment_ba_problem(K, L, seed=37 + K)
     else:
         p = ba_problem(K, L, seed=23 + K, noise=1.5, point_noise=0.1, hard=True)
     to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     args = (to(p["T"]), to(p["X0"]), to(p["obs"]), to(p["mask"].astype("float32")))
+    if ordered:
+        perm, _ = ba_kernel.landmark_order(args[3])
+        args = (args[0], args[1][perm], args[2][:, perm], args[3][:, perm])
     kw = dict(zip(("fx", "fy", "cx", "cy", "bq"), p["intr"]))
+    schedule = ba_kernel.schur_schedule(args[3])
     # with one keyframe every landmark is observed once, and S is H_pp
     # cancelled by its own landmarks' terms down to the damping: at 1e-3 the
     # plain float32 version keeps no digit of it (7.8 x its size from
@@ -1211,7 +1244,7 @@ def check_schur_kernel(device, name: str, K: int, L: int, timed: bool,
     lam = 10.0 if K == 1 else 1e-3
     got = fn(*args, lam, **kw)
     torch.cuda.synchronize()
-    again = fn(*args, lam, **kw)
+    again = fn(*args, lam, **kw, schedule=schedule)
     want32 = plain(*args, lam, **kw)
     want64 = plain(*[a.double() for a in args], lam, **kw)
     torch.cuda.synchronize()
@@ -1221,7 +1254,8 @@ def check_schur_kernel(device, name: str, K: int, L: int, timed: bool,
     err = ba_kernel.schur_errors(got, want32)
     bad = {nm: float(f"{e:.3e}") for nm, e in err.items()
            if not e < ba_kernel.SCHUR_TOL[nm]}
-    require(not bad, f"{name} K={K} L={L} padded={padded}: off by {bad}")
+    require(not bad, f"{name} K={K} L={L} padded={padded} segment={segment} "
+            f"ordered={ordered}: off by {bad}")
     # the inputs reach every branch
     pc_z = (torch.einsum("kij,lj->kli", args[0][:, :3, :3], args[1])
             + args[0][:, None, :3, 3])[..., 2]
@@ -1229,7 +1263,8 @@ def check_schur_kernel(device, name: str, K: int, L: int, timed: bool,
     require(bool(((pc_z < 0.05) & seen).any()) and bool(((pc_z.abs() < 1e-6) & seen).any()),
             "no observation behind / in the plane of the camera")
     require(bool((~seen.any(0)).any()), "no unobserved landmark")
-    require(float(got[4][:, :, :7].abs().max()) == 0.0, "W of an unobserved landmark")
+    require(float(got[4][:, :, ~seen.any(0)].abs().max()) == 0.0,
+            "W of an unobserved landmark")
     # an unobserved landmark: 1 / (lam + point_damping) on the diagonal
     unseen_inv = got[2][~seen.any(0)].double() * (lam + 1e-6)
     require(float((unseen_inv - torch.eye(3, device=device, dtype=torch.float64))
@@ -1245,11 +1280,14 @@ def check_schur_kernel(device, name: str, K: int, L: int, timed: bool,
                 and torch.count_nonzero(got[4][:, :, l0:]) == 0,
                 f"{name}: padded rows or columns of S / W not zero")
     out = dict(
-        name=name, K=K, L=L, padded=padded, rel_err_vs_plain=err,
+        name=name, K=K, L=L, padded=padded, segment=segment, ordered=ordered,
+        live_products=int(schedule.live),
+        products=schedule.tiling.n_tiles * schedule.tiling.n_slabs, rel_err_vs_plain=err,
         max_abs_err=float(torch.max(torch.abs(got[0] - want32[0]))),
         rel_err_vs_float64=dict(kernel=ba_kernel.schur_errors(got, want64),
                                 plain=ba_kernel.schur_errors(want32, want64)),
-        # partials are added in a fixed order: no run-to-run change
+        # partials are added in a fixed order: no run-to-run change, whether
+        # the wrapper or the caller made the schedule
         same_bits_twice=all(torch.equal(a, b) for a, b in zip(got, again)))
     require(out["same_bits_twice"], f"{name}: two runs differ")
     # the kernel is no further from float64 than the plain float32 version:
@@ -1266,15 +1304,27 @@ def check_schur_kernel(device, name: str, K: int, L: int, timed: bool,
     if timed:
         # the whole function through the wrapper; the launch alone
         # (allocations + the three kernels); the device time of each kernel
-        # and their sum from a trace
-        out["ms"] = time_ms(lambda: fn(*args, lam, **kw), 50)
+        # and their sum from a trace; all with the schedule made once
+        out["ms"] = time_ms(lambda: fn(*args, lam, **kw, schedule=schedule), 50)
         launch = lambda: ba_kernel.launch_schur_system(  # noqa: E731
-            *args, lam, (*p["intr"], 10.0), 1e-6, tiled=name == "schur_assemble_tiled")
+            *args, lam, (*p["intr"], 10.0), 1e-6, tiled=name == "schur_assemble_tiled",
+            schedule=schedule)
         out["launch_only_ms"] = time_ms(launch, 50)
         by_kernel = traced_device_ms_by_kernel(launch, SCHUR_KERNELS)
         out["device_ms_by_kernel"] = by_kernel
         out["device_ms"] = (None if None in by_kernel.values()
                             else sum(by_kernel.values()))
+        if ordered:
+            # what solvers.ba adds once a solve on the card and no schur_*
+            # kernel counts: the order, the mask and the inputs gathered by
+            # it, the schedule; every device operation of it
+            def order_stage():
+                perm, _ = ba_kernel.landmark_order(args[3])
+                ba_kernel.schur_schedule(args[3].index_select(1, perm))
+                args[2].index_select(1, perm)
+                args[1].index_select(0, perm)
+            out["order_stage_device_ms"] = traced_device_ms_by_kernel(
+                order_stage, ("",), 20)[""]
         out["plain_ms"] = time_ms(lambda: plain(*args, lam, **kw), 3, 1)
         # torch.matmul of the same planes: the dense [6K, 3L] x [3L, 6K]
         # product the plain version forms, its operands laid out beforehand
@@ -1296,12 +1346,18 @@ LOOP_BA_SHAPES = [("schur_assemble", 8, N_LANDMARKS),
                   ("schur_assemble_tiled", 64, N_LANDMARKS)]
 
 
+# K5 over a map segment's visibility: 128 keyframes x L landmarks, in the
+# order the solver loads a solve in on the card and, at the segment cells'
+# size, in the generator's order
+SEGMENT_SHAPES = [(BA_LANDMARKS, True), (65536, True), (65536, False)]
+
+
 def check_backend_kernels(device, timed: bool = True) -> list[dict]:
     """K4 and K5 at ragged shapes (one keyframe, 31 keyframes, 4097
     landmarks), at the widest windows of the map-optimisation path, at the
-    windows of the whole system's loop and at a 64 x 1024 window padded as
-    the loop pads its windows (``timed=False``: every shape checked, none
-    timed)."""
+    windows of the whole system's loop, at a 64 x 1024 window padded as
+    the loop pads its windows and on map segments (``SEGMENT_SHAPES``)
+    (``timed=False``: every shape checked, none timed)."""
     shapes = [("schur_assemble", 8, 640, False), ("schur_assemble", 5, 1000, False),
               ("schur_assemble", 1, 640, False), ("schur_assemble", 31, 4097, False),
               ("schur_assemble_tiled", 32, 4097, False),
@@ -1312,6 +1368,9 @@ def check_backend_kernels(device, timed: bool = True) -> list[dict]:
     rows = [check_schur_kernel(device, *s[:3], s[3] and timed) for s in shapes]
     rows.append(check_schur_kernel(device, "schur_assemble_tiled", 64, N_LANDMARKS,
                                    timed, padded=True))
+    rows += [check_schur_kernel(device, "schur_assemble_tiled", 128, L, timed,
+                                segment=True, ordered=ordered)
+             for L, ordered in SEGMENT_SHAPES]
     return rows
 
 
@@ -1360,12 +1419,14 @@ def run_bundle_adjust(device, K: int, iterations: int) -> dict:
     torch.cuda.synchronize()
     before = launch_counts()[name]
     graphs_before = ba.graph_counts()
+    ba.reset_schur_schedule_counts()
     t0 = time.perf_counter()
     prep, res = run(iterations)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_counts()[name] - before
     graphs = {k: v - graphs_before[k] for k, v in ba.graph_counts().items()}
+    schedule = ba.schur_schedule_counts()
     its = int(res.iterations)
     err2, depth = ba.reprojection_stats(res.T_wc, res.points_w, t["obs_uv"],
                                         prep.mask, cam, device=device)
@@ -1374,9 +1435,14 @@ def run_bundle_adjust(device, K: int, iterations: int) -> dict:
     require(its == iterations, f"K={K}: {its} LM iterations of {iterations}")
     require(launches == its, f"K={K}: {launches} launches of {name} in {its} iterations")
     # the warm-up captured this window's stages: the update and chi^2 replay
-    # (the window has no pose chain or gravity term, so no priors stage)
-    require(graphs == {"graph_capture": 0, "graph_replay": 2 * its + 1},
+    # (the window has no pose chain or gravity term, so no priors stage),
+    # and the landmark order once a solve
+    require(graphs == {"graph_capture": 0, "graph_replay": 2 * its + 2},
             f"K={K}: LM graphs {graphs} in {its} iterations")
+    # the solve ordered its landmarks and made the product's schedule once
+    require(schedule["solves_ordered"] == 1
+            and 0 < schedule["live_products"] <= schedule["total_products"],
+            f"K={K}: schedule counts {schedule}")
     require(np.isfinite(chi1) and chi1 < 0.2 * chi0, f"K={K}: chi2 {chi0} -> {chi1}")
     T_est = res.T_wc.cpu().numpy()
     pose_err = float(np.abs(T_est[:, :3, 3] - p["T"][:, :3, 3]).max())
@@ -1393,7 +1459,7 @@ def run_bundle_adjust(device, K: int, iterations: int) -> dict:
     require(bool(torch.isfinite(err2).all()), "reprojection_stats not finite")
     return dict(
         K=K, L=BA_LANDMARKS, kernel=name, iterations=its, launches=launches,
-        graph_replays=graphs["graph_replay"],
+        graph_replays=graphs["graph_replay"], schur_schedule=schedule,
         launches_per_iteration=launches / its, seconds=seconds,
         lm_iterations_per_s=its / seconds, ms_per_iteration=1e3 * seconds / its,
         chi2_initial=chi0, chi2_final=chi1, n_obs=int(prep.n_obs),
@@ -5099,7 +5165,7 @@ def main() -> int:
     # against their plain versions: the expected ones in the kernel phase
     # above, any other one now
     at_shape = {(k["name"], k["K"], k["L"]): k for k in backend
-                if "ms" in k and not k["padded"]}
+                if "ms" in k and not k["padded"] and not k["segment"]}
     loop_windows = (loop["ba_windows"] + svi["ba_windows"] + resume["ba_windows"]
                     + stress["ba_windows"] + alias["ba_windows"] + asyn["ba_windows"]
                     + overlap["ba_windows"])

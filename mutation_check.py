@@ -36,11 +36,6 @@ the result and must be caught:
   so the blocks merely swap their work and the splits' partial H_ll are
   added in another order, within the tolerance (beside it: the split offset
   dropped where the pose is read);
-* never skipping a landmark tile in the Schur product: a tile whose flags
-  are all 0 for a keyframe group holds W entries that are exactly +-0 there
-  (the weight is 0, so every Jacobian row is), and adding +-0 to a sum
-  that starts at +0 changes no bit (beside it: a flag that skips observed
-  tiles);
 * in K1, floor and ceiling division truncating toward zero instead: that
   only ever moves an interval's end outward, by one column, and a pixel
   listed in excess is scored and rejected by the tiers as the plain version
@@ -77,12 +72,13 @@ at position 1.
 
 The Schur faults: the in-front test dropped, the robust branch never
 taken, two W rows swapped, the C operand's rows reversed, the split offset
-dropped for the poses, a chunk's partial left out or added twice, a
-landmark tile's H_pp / b_p left out of a chunk, the lower triangle not
-mirrored (zeros) or its blocks not transposed, the rhs
-column dropped or shifted by one landmark, the last landmark chunk or the
-ragged landmarks past the last full tile dropped, a flag that skips
-observed tiles, a cofactor's sign. The two ``hll_inv_written_*`` faults
+dropped for the poses, a tile's last item partial left out or its first
+added twice, a landmark tile's H_pp / b_p left out of an item, the lower
+triangle not mirrored (zeros) or its blocks not transposed, the rhs
+column dropped or shifted by one landmark, the schedule's last item or the
+ragged landmarks past the last full tile dropped, an item's listed slabs
+read as one run from its first (only a map segment's visibility, ordered,
+gives a list with gaps), a cofactor's sign. The two ``hll_inv_written_*`` faults
 change only the ``Hll_inv`` the designated block writes out, not the
 inverse the product uses for ``S`` and ``rhs``: the 3 % one shows what the
 per-landmark comparison of ``Hll_inv`` adds.
@@ -175,37 +171,32 @@ FAULTS = {
     "split_offset_dropped_for_poses": (
         "const float* Tk = T + 16 * k;", "const float* Tk = T + 16 * kk;", True),
     "partials_summed_one_short": (
-        "for (int c = 0; c < nc; ++c) s += part[((size_t)c * P + p) * 36 + q];",
-        "for (int c = 0; c + 1 < nc; ++c) s += part[((size_t)c * P + p) * 36 + q];", True),
-    "chunk_partial_added_twice": (
-        "s += part[((size_t)c * P + p) * 36 + q];",
-        "s += part[((size_t)c * P + p) * 36 + q] * (c == 0 ? 2.0f : 1.0f);", True),
+        "n < n1; ++n)\n            s += part[",
+        "n + 1 < n1; ++n)\n            s += part[", True),
+    "item_partial_added_twice": (
+        "s += part[((size_t)n * g * g + local) * 36 + q];",
+        "s += part[((size_t)n * g * g + local) * 36 + q] * (n == __ldg(tile_items + t) ? 2.0f"
+        " : 1.0f);", True),
     "lower_triangle_not_mirrored": (
         "if (i != j) S[(size_t)(6 * j + q / 6) * K6 + 6 * i + q % 6] =",
         "if (i != j) S[(size_t)(6 * j + q / 6) * K6 + 6 * i + q % 6] = 0.0f * ", True),
     "lower_blocks_not_transposed": (
         "= v[u - q + (q % 6) * 6 + q / 6];", "= v[u];", True),
     "hpp_tile_left_out": (
-        "for (int tt = (s0 + 1) / 2; tt < min(nlt, (s1 + 1) / 2); ++tt) {",
-        "for (int tt = (s0 + 1) / 2 + 1; tt < min(nlt, (s1 + 1) / 2); ++tt) {", True),
+        "for (int e = 0; e < count; ++e) {", "for (int e = 2; e < count; ++e) {", True),
     "rhs_column_dropped": (
         "const float bl = cp[l * SLOT + 8 * c + 6];", "const float bl = 0.0f;", True),
     "rhs_column_shifted_by_one_landmark": (
         "const float bl = cp[l * SLOT + 8 * c + 6];",
         "const float bl = cp[((l + 1) % LS) * SLOT + 8 * c + 6];", True),
-    "last_chunk_dropped": (
-        "const int s1 = min((L + LS - 1) / LS, s0 + sc);",
-        "const int s1 = chunk + 1 < (int)gridDim.y ? min((L + LS - 1) / LS, s0 + sc) : s0;",
-        True),
+    "last_item_dropped": (
+        "for (int item = blockIdx.x; item < n_items; item += gridDim.x) {",
+        "for (int item = blockIdx.x; item + 1 < n_items; item += gridDim.x) {", True),
     "ragged_landmarks_dropped": (
         "const bool ok = row < 6 * K && l0 + l < L;",
         "const bool ok = row < 6 * K && l0 + l < (L & ~31);", True),
-    "flag_skips_observed_tiles": (
-        "__ballot_sync(FULL, ow != 0.0f)", "__ballot_sync(FULL, ow > 1.0f)", True),
-    "never_skip": (
-        "live = any_flag(flags, tt, K, I * G, G) &&\n"
-        "                       (diag || any_flag(flags, tt, K, J * G, G));",
-        "live = true;", False),
+    "slab_list_read_as_a_range": (
+        "stage(__ldg(listed + s + 1));", "stage(__ldg(listed) + s + 1);", True),
     "cofactor_wrong_sign": (
         "const float c01 = a02 * a12 - a01 * a22;",
         "const float c01 = a01 * a22 - a02 * a12;", True),
@@ -297,14 +288,14 @@ FAULTS = {
 # the product kernel with a phase patched out: the multiply-adds alone
 # (staging and the C transform skipped; the shared operands are whatever
 # they hold), and staging and transform alone (no multiply-add)
-NO_STAGING = ("    auto stage = [&](int slab) {\n",
-              "    auto stage = [&](int slab) {\n        if (K > 0) return;\n")
-NO_TRANSFORM = ("        for (int e = tid; e < G * LS; e += PT) {\n"
-                "            const int l = e % LS;",
-                "        for (int e = tid; e < G * LS && K < 0; e += PT) {\n"
-                "            const int l = e % LS;")
-NO_FMA = ("        if (pair_on) {\n            const float* cp = cs + li * KPITCH;",
-          "        if (pair_on && K < 0) {\n            const float* cp = cs + li * KPITCH;")
+NO_STAGING = ("        auto stage = [&](int slab) {\n",
+              "        auto stage = [&](int slab) {\n            if (K > 0) return;\n")
+NO_TRANSFORM = ("            for (int e = tid; e < G * LS; e += PT) {\n"
+                "                const int l = e % LS;",
+                "            for (int e = tid; e < G * LS && K < 0; e += PT) {\n"
+                "                const int l = e % LS;")
+NO_FMA = ("            if (pair_on) {\n                const float* cp = cs + li * KPITCH;",
+          "            if (pair_on && K < 0) {\n                const float* cp = cs + li * KPITCH;")
 PRODUCT_PHASES = (("whole", ()), ("fma_alone", (NO_STAGING, NO_TRANSFORM)),
                   ("staging_and_transform_alone", (NO_FMA,)), ("whole_again", ()))
 

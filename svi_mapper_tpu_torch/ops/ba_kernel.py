@@ -30,10 +30,16 @@ Division of work on the card: both entry points launch the same three
 kernels (assembly, product, reduction; :class:`SchurTiling` cuts the
 window) and compute the whole function there: the product forms only the
 upper triangle of 6x6 blocks of the symmetric ``W Hll^-1 W^T``, with
-``rhs`` as one more column and ``C = W Hll^-1`` formed in shared memory;
-landmark tiles that a keyframe group does not observe are skipped (their
-terms are exact zeros). The wrappers check, allocate, launch and count;
-they do no arithmetic. The TPU kernel of K5 left the product to XLA.
+``rhs`` as one more column and ``C = W Hll^-1`` formed in shared memory.
+It walks a schedule (:func:`schur_schedule`, plain PyTorch on the mask):
+the live (pair of keyframe groups, slab of 16 landmarks) products, those
+whose landmark tile both groups observe, cut into items that a persistent
+grid shares out; every other product is exact zeros. How many are live
+depends on the landmarks' order: a window ordered by each landmark's first
+observing keyframe (:func:`landmark_order`, which ``solvers.ba`` applies
+to a solve on the card) keeps a landmark tile's observers in a few groups.
+The wrappers check, allocate, build the schedule where none is given,
+launch and count. The TPU kernel of K5 left the product to XLA.
 
 Bound on the card, where every keyframe observes every landmark: at
 K = 32, L = 4096 2.6 MB in, 9.8 MB out (the W planes are 9.4 MB) = 3.7 us
@@ -258,37 +264,40 @@ def schur_errors(got, want) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the tiling of the CUDA kernels
+# the tiling of the CUDA kernels, the product's schedule, the landmark order
 # ---------------------------------------------------------------------------
 
 ASSEMBLY_WARPS = 4           # warps of an assembly block, one keyframe each
 PRODUCT_SLAB = 16            # landmarks a product block stages at a time
-MAX_CHUNK_SLABS = 512        # slabs per product chunk (the kernel's list of
-                             # live slabs)
-MAX_CHUNKS = 128             # product chunks: the reduction adds an entry's
-                             # partials one after another
+ITEMS_PER_SLOT = 2           # the schedule's item slots per block the card
+                             # holds at once
 H100_SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
 class SchurTiling:
     """How ``csrc/schur_assemble.cu`` cuts a ``[K, L]`` window; the kernels
-    take ``ks``, ``sc`` and ``g`` from here and mirror the rest.
+    take ``ks``, ``g``, :attr:`max_items` and :attr:`product_blocks` from
+    here and mirror the rest.
 
     * assembly: blocks of ``LANDMARK_TILE`` landmarks x ``ks`` keyframes
       (grid ``nlt x nks``);
-    * product: keyframe groups of ``g``; one block per (tile of the upper
-      triangle of groups, ``I <= J``) x (chunk of ``sc`` slabs of
-      ``PRODUCT_SLAB`` landmarks);
+    * product: keyframe groups of ``g``; its products are (tile of the upper
+      triangle of groups, ``I <= J``) x (slab of ``PRODUCT_SLAB``
+      landmarks). A schedule (:func:`schur_schedule`) lists the live ones
+      and cuts each tile's into items; a persistent grid of
+      :attr:`product_blocks` blocks (``slots`` fit on the card at once)
+      takes item ``n`` in block ``n % product_blocks`` and writes its
+      partial into slot ``n``;
     * reduction: one thread per entry of the upper block triangle and of
-      ``rhs``.
+      ``rhs``, adding its tile's items in item order.
     """
 
     K: int
     L: int
     g: int
     ks: int
-    sc: int
+    slots: int
 
     @property
     def nlt(self) -> int:
@@ -303,19 +312,30 @@ class SchurTiling:
         return -(-self.L // PRODUCT_SLAB)
 
     @property
-    def nc(self) -> int:
-        return -(-self.n_slabs // self.sc)
-
-    @property
     def n_groups(self) -> int:
         return -(-self.K // self.g)
+
+    @property
+    def n_tiles(self) -> int:
+        return self.n_groups * (self.n_groups + 1) // 2
 
     @property
     def pairs(self) -> int:
         return self.K * (self.K + 1) // 2
 
+    @property
+    def max_items(self) -> int:
+        """The items a schedule may cut: ``ITEMS_PER_SLOT`` a slot, or one a
+        product where there are fewer products, and one a tile at least."""
+        return max(min(ITEMS_PER_SLOT * self.slots, self.n_tiles * self.n_slabs),
+                   self.n_tiles)
+
+    @property
+    def product_blocks(self) -> int:
+        return min(self.slots, self.max_items)
+
     def tiles(self) -> list[tuple[int, int]]:
-        """The product grid's tiles ``(I, J)``, in ``blockIdx.x`` order."""
+        """The product's tiles ``(I, J)``, in the order of their index."""
         n = self.n_groups
         return [(i, j) for i in range(n) for j in range(i, n)]
 
@@ -327,31 +347,37 @@ class SchurTiling:
                 for j in range(J * self.g, min(self.K, (J + 1) * self.g))
                 if I < J or i <= j]
 
-    def chunks(self) -> list[tuple[int, int]]:
-        """Landmark range ``[l0, l1)`` of each product chunk."""
-        step = self.sc * PRODUCT_SLAB
-        return [(l0, min(self.L, l0 + step)) for l0 in range(0, self.L, step)]
-
-    def partial_floats(self) -> int:
-        """The product's partials: per chunk, the upper block triangle and
-        the rhs column."""
-        return self.nc * (36 * self.pairs + 6 * self.K)
-
     @functools.cache
     def layout(self) -> Mapping[str, tuple[int, int]]:
         """Offset and length, in 4-byte words, of every region of the one
         buffer a call allocates besides ``W``: the outputs ``S``, ``rhs``,
-        ``Hll_inv``, ``b_l`` and the scratch (every region 16-byte aligned,
-        ``flags`` int32)."""
+        ``Hll_inv``, ``b_l`` and the scratch (every region 16-byte aligned).
+        An item's partial holds its tile's ``g x g``
+        blocks and ``g`` rows of the rhs column."""
         K, L = self.K, self.L
-        sizes = [("part", self.nc * 36 * self.pairs), ("rhs_part", self.nc * 6 * K),
+        sizes = [("part", self.max_items * 36 * self.g * self.g),
+                 ("rhs_part", self.max_items * 6 * self.g),
                  ("hrec", 12 * L), ("pp_part", self.nlt * K * 27),
-                 ("hl_part", self.nks * 9 * L), ("flags", self.nlt * K),
+                 ("hl_part", self.nks * 9 * L),
                  ("S", 36 * K * K), ("rhs", 6 * K), ("Hll_inv", 9 * L), ("b_l", 3 * L)]
         out, at = {}, 0
         for name, n in sizes:
             out[name] = (at, n)
             at += -(-n // 4) * 4
+        out["total"] = (0, at)
+        return MappingProxyType(out)
+
+    @functools.cache
+    def schedule_layout(self) -> Mapping[str, tuple[int, int]]:
+        """Offset and length, in int32 words, of every region of a
+        schedule's table (:class:`SchurSchedule`), in the kernels' order."""
+        sizes = [("tile_items", self.n_tiles + 1), ("item_tile", self.max_items),
+                 ("item_first", self.max_items), ("item_count", self.max_items),
+                 ("slabs", self.n_tiles * self.n_slabs), ("live", 1)]
+        out, at = {}, 0
+        for name, n in sizes:
+            out[name] = (at, n)
+            at += n
         out["total"] = (0, at)
         return MappingProxyType(out)
 
@@ -361,15 +387,11 @@ def schur_tiling(K: int, L: int, sms: int = H100_SMS) -> SchurTiling:
     """The tiling of a ``[K, L]`` window on a card of ``sms`` SMs.
 
     Groups of 8 keyframes up to K = 8, of 16 beyond (the two instances of
-    the product kernel: 64 threads, four blocks per SM; 256 threads, two).
-    The assembly splits the keyframe axis, in splits of at least two
-    keyframes per warp, until the grid has about eight blocks of four warps
-    per SM, so that the W planes' stores have warps enough in flight. The
-    product's chunk is the number of slabs ``sc`` that minimises waves x
-    slabs per block, or the largest within 10 % of that (fewer partials to
-    add); there are at most ``MAX_CHUNKS`` chunks, and with more than one
-    the partials may not exceed the W planes (one chunk's partial already
-    does when L < K + 2).
+    the product kernel: 64 threads, four blocks per SM; 256 threads, two:
+    its ``slots``). The assembly splits the keyframe axis, in splits of at
+    least two keyframes per warp, until the grid has about eight blocks of
+    four warps per SM, so that the W planes' stores have warps enough in
+    flight.
     """
     if K < 1 or L < 1:
         raise ValueError(f"an empty window: K = {K}, L = {L}")
@@ -377,19 +399,97 @@ def schur_tiling(K: int, L: int, sms: int = H100_SMS) -> SchurTiling:
     nlt = -(-L // LANDMARK_TILE)
     nks = min(-(-K // (2 * ASSEMBLY_WARPS)), max(1, -(-8 * sms // nlt)))
     ks = -(-(-(-K // nks)) // ASSEMBLY_WARPS) * ASSEMBLY_WARPS
-    n = -(-K // g)
-    tiles = n * (n + 1) // 2
-    slots = sms * (4 if g == 8 else 2)
-    per_chunk = 18 * K * (K + 1) + 6 * K
-    n_slabs = -(-L // PRODUCT_SLAB)
-    cost = {}
-    for sc in range(1, min(n_slabs, MAX_CHUNK_SLABS) + 1):
-        nc = -(-n_slabs // sc)
-        if nc == 1 or (nc <= MAX_CHUNKS and nc * per_chunk <= 18 * K * L):
-            cost[sc] = -(-tiles * nc // slots) * sc
-    least = min(cost.values())
-    sc = max(c for c, v in cost.items() if v <= 1.1 * least)
-    return SchurTiling(K=K, L=L, g=g, ks=ks, sc=sc)
+    return SchurTiling(K=K, L=L, g=g, ks=ks, slots=sms * (4 if g == 8 else 2))
+
+
+@dataclasses.dataclass(frozen=True)
+class SchurSchedule:
+    """The product's work for one mask. ``table`` (int32, on the mask's
+    device) holds the regions of :meth:`SchurTiling.schedule_layout`:
+
+    * ``slabs``: the live slabs of every tile, tile by tile, in slab order
+      (then the others, which no item reaches);
+    * ``tile_items [n_tiles + 1]``: each tile's first item, and the number
+      of items;
+    * ``item_tile``, ``item_first``, ``item_count``: each item's tile, its
+      first entry of ``slabs`` and its number of slabs (0 past the last);
+    * ``live``: the number of live products.
+    """
+
+    tiling: SchurTiling
+    table: torch.Tensor
+
+    def region(self, name: str) -> torch.Tensor:
+        at, n = self.tiling.schedule_layout()[name]
+        return self.table.narrow(0, at, n)
+
+    @property
+    def live(self) -> torch.Tensor:
+        """Live (tile, slab) products, a 0-d tensor on the table's device."""
+        return self.region("live")[0]
+
+
+def schur_schedule(obs_w: torch.Tensor, sms: int | None = None) -> SchurSchedule:
+    """The product's schedule for the ``[K, L]`` weights ``obs_w`` (any
+    dtype; an entry other than 0 is an observation), made on their device
+    without a host read.
+
+    A (tile, slab) product is live where both keyframe groups of the tile
+    observe the slab's landmark tile; the others multiply exact zeros (an
+    observation's weight scales every W entry of it), and the product
+    never visits them. Each tile's live slabs are cut into items of ``c``
+    slabs (its last item fewer), ``c`` the largest of those that minimise
+    the slabs a block of the persistent grid walks, items a block x ``c``
+    (the largest: fewer partials to add), among those whose items fit
+    ``max_items``. ``sms`` is the card's SM count; ``None`` reads it from a CUDA
+    tensor's card and takes the H100's on the CPU. Every order here is
+    fixed by the mask."""
+    K, L = obs_w.shape
+    dev = obs_w.device
+    if sms is None:
+        sms = _sm_count(dev.index) if dev.type == "cuda" else H100_SMS
+    t = schur_tiling(K, L, sms)
+    n_g, T = t.n_groups, t.n_tiles
+    seen = torch.zeros((n_g * t.g, t.nlt * LANDMARK_TILE), dtype=torch.bool, device=dev)
+    seen[:K, :L] = obs_w != 0
+    groups = seen.view(n_g, t.g, t.nlt, LANDMARK_TILE).any(3).any(1)    # [n_g, nlt]
+    I, J = torch.triu_indices(n_g, n_g, device=dev)                      # tile order
+    live = (groups[I] & groups[J])[:, :, None].expand(
+        T, t.nlt, LANDMARK_TILE // PRODUCT_SLAB).reshape(T, -1)[:, :t.n_slabs]  # [T, n_slabs]
+    counts = live.sum(1)
+    c = torch.arange(1, t.n_slabs + 1, device=dev)
+    items = ((counts + c[:, None] - 1) // c[:, None]).sum(1)
+    cost = torch.where(items <= t.max_items,
+                       (items + t.product_blocks - 1) // t.product_blocks * c, 2**40)
+    c = torch.where(cost == cost.min(), c, 0).amax()
+    per_tile = (counts + c - 1) // c
+    ends = torch.cumsum(per_tile, 0)
+    n = torch.arange(t.max_items, device=dev)
+    tile = torch.searchsorted(ends, n, right=True).clamp(max=T - 1)
+    k = n - (ends - per_tile)[tile]                                      # item of its tile
+    count = torch.where(n < ends[-1], torch.minimum(counts[tile] - k * c, c), 0)
+    first = (torch.cumsum(counts, 0) - counts)[tile] + k * c
+    slabs = torch.sort((~live).flatten().to(torch.uint8), stable=True).indices % t.n_slabs
+    table = torch.cat([torch.zeros(1, dtype=ends.dtype, device=dev), ends, tile, first,
+                       count, slabs, counts.sum().reshape(1)]).to(torch.int32)
+    return SchurSchedule(tiling=t, table=table)
+
+
+def landmark_order(obs_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The landmark order the product's schedule wants for the ``[K, L]``
+    mask: ``(perm, inv)``, ``x[perm]`` the landmarks sorted by their first
+    observing keyframe (a stable sort: ties keep the caller's order; the
+    landmarks nobody observes last), ``x[perm][inv] == x``. A window whose
+    landmarks each keyframes of a short span observe, as a map segment's
+    are, then has each landmark tile observed by one or two keyframe
+    groups. On the mask's device, without a host read."""
+    K, L = obs_mask.shape
+    dev = obs_mask.device
+    k = torch.arange(K, dtype=torch.int32, device=dev)
+    first = torch.where(obs_mask != 0, k[:, None], K).amin(0)
+    perm = torch.sort(first, stable=True).indices
+    inv = torch.empty_like(perm).scatter_(0, perm, torch.arange(L, device=dev))
+    return perm, inv
 
 
 # ---------------------------------------------------------------------------
@@ -466,21 +566,31 @@ def schur_views(out) -> tuple[torch.Tensor, ...]:
 
 
 def launch_schur_system(T, X, obs, ow, lam, cam_scalars, point_damping, *,
-                        tiled: bool, out=None):
+                        tiled: bool, out=None, schedule: SchurSchedule | None = None):
     """Launch the three kernels on checked, contiguous CUDA inputs into
     ``out`` (:func:`schur_out`'s buffers; allocated here when ``None``) and
-    count the launch under K5 (``tiled``) or K4. Returns ``(S, rhs,
-    Hll_inv, b_l, W)``, views of ``out``; ``cam_scalars`` is ``(fx, fy, cx,
-    cy, bq, kernel_px2)``."""
+    count the launch under K5 (``tiled``) or K4. ``schedule`` is the
+    product's schedule of ``ow``'s mask (:func:`schur_schedule`), made here
+    when ``None``: a caller that keeps one mask for many calls makes it
+    once. Returns ``(S, rhs, Hll_inv, b_l, W)``, views of ``out``;
+    ``cam_scalars`` is ``(fx, fy, cx, cy, bq, kernel_px2)``."""
     K, L = ow.shape
     dev = T.device
-    tiling = schur_tiling(K, L, _sm_count(dev.index))
+    sms = _sm_count(dev.index)
+    tiling = schur_tiling(K, L, sms)
     buf, W = schur_out(K, L, dev) if out is None else out
     if (buf.shape != (tiling.layout()["total"][1],) or W.shape != (3, 6 * K, L)
             or any(t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
                    for t in (buf, W))):
         raise ValueError(f"out: buffers {tuple(buf.shape)}, {tuple(W.shape)} are not "
                          f"schur_out({K}, {L}) on {dev}")
+    if schedule is None:
+        schedule = schur_schedule(ow, sms)
+    table = schedule.table
+    if (schedule.tiling != tiling or table.device != dev or table.dtype != torch.int32
+            or table.shape != (tiling.schedule_layout()["total"][1],)):
+        raise ValueError(f"schedule: made for {schedule.tiling} on {table.device}, not "
+                         f"for the {K} x {L} window on {dev}")
     base = buf.data_ptr()
     ptr = {name: base + 4 * at for name, (at, _) in tiling.layout().items()}
     damping = float(np.float32(float(lam)) + np.float32(point_damping))
@@ -490,10 +600,10 @@ def launch_schur_system(T, X, obs, ow, lam, cam_scalars, point_damping, *,
         err = lib.svi_schur_system(
             T.data_ptr(), X.data_ptr(), obs.data_ptr(), ow.data_ptr(), ptr["S"],
             ptr["rhs"], ptr["Hll_inv"], ptr["b_l"], W.data_ptr(), ptr["pp_part"],
-            ptr["hl_part"], ptr["flags"], ptr["hrec"], ptr["part"], ptr["rhs_part"],
-            _counters(dev, stream, tiling.nlt).data_ptr(), K, L,
-            tiling.ks, tiling.sc, tiling.g, *[float(v) for v in cam_scalars],
-            damping, stream)
+            ptr["hl_part"], ptr["hrec"], ptr["part"], ptr["rhs_part"],
+            _counters(dev, stream, tiling.nlt).data_ptr(), table.data_ptr(), K, L,
+            tiling.ks, tiling.g, tiling.max_items, tiling.product_blocks,
+            *[float(v) for v in cam_scalars], damping, stream)
     cuda_build.check_launch(err, "svi_schur_system")
     work = lambda: (lambda c: (c["bytes"], c["flops"]))(paths.schur_work(ow, K, L))  # noqa: E731
     paths.count_launch(__name__, "schur_assemble_tiled" if tiled else "schur_assemble",
@@ -501,25 +611,28 @@ def launch_schur_system(T, X, obs, ow, lam, cam_scalars, point_damping, *,
     return schur_views((buf, W))
 
 
-def _no_out_on_cpu(out) -> None:
-    if out is not None:
-        raise ValueError("out= takes the kernels' buffers on the card; the plain "
-                         "version allocates its outputs")
+def _no_card_buffers_on_cpu(out, schedule) -> None:
+    if out is not None or schedule is not None:
+        raise ValueError("out= and schedule= take the kernels' buffers on the card; "
+                         "the plain version allocates its outputs")
 
 
 def schur_assemble(T_wc, points_w, obs_uv, obs_w, lam, *,
                    fx, fy, cx, cy, bq, kernel_px2=10.0, point_damping=1e-6,
-                   out=None):
+                   out=None, schedule=None):
     """Fused Schur assembly for ``K <= 32`` keyframes. Returns
     ``(S [K,6,K,6], rhs [K,6], Hll_inv [L,3,3], b_l [L,3], W [3,6K,L])``.
 
     ``obs_w`` is the observation mask (times any information scale) as
     float; ``lam`` a Python float or a 0-d tensor. CUDA tensors go through
     the hand-written kernels (or raise), writing into ``out`` where given
-    (:func:`schur_out`); only CPU tensors take :func:`schur_assemble_plain`.
+    (:func:`schur_out`), with the product's ``schedule`` of ``obs_w``
+    where given (:func:`schur_schedule`); only CPU tensors take
+    :func:`schur_assemble_plain`. The outputs follow the caller's landmark
+    order, whatever it is.
     """
     if not T_wc.is_cuda:
-        _no_out_on_cpu(out)
+        _no_card_buffers_on_cpu(out, schedule)
         return schur_assemble_plain(
             T_wc, points_w, obs_uv, obs_w, lam, fx=fx, fy=fy, cx=cx, cy=cy,
             bq=bq, kernel_px2=kernel_px2, point_damping=point_damping)
@@ -528,22 +641,24 @@ def schur_assemble(T_wc, points_w, obs_uv, obs_w, lam, *,
         raise ValueError(f"schur_assemble takes K <= {KT} keyframes, got {K}")
     return launch_schur_system(
         *_cuda_inputs(T_wc, points_w, obs_uv, obs_w, "schur_assemble"), lam,
-        (fx, fy, cx, cy, bq, kernel_px2), point_damping, tiled=False, out=out)
+        (fx, fy, cx, cy, bq, kernel_px2), point_damping, tiled=False, out=out,
+        schedule=schedule)
 
 
 def schur_assemble_tiled(T_wc, points_w, obs_uv, obs_w, lam, *,
                          fx, fy, cx, cy, bq, kernel_px2=10.0,
-                         point_damping=1e-6, out=None):
+                         point_damping=1e-6, out=None, schedule=None):
     """Fused Schur assembly for ``K % 32 == 0`` keyframes. Same
     return contract as :func:`schur_assemble`, and on the card the same
     kernels; its plain version goes through per-tile partial sums of 32
     keyframes, as the TPU kernel did."""
     _check_tiled(obs_w.shape[0])
     if not T_wc.is_cuda:
-        _no_out_on_cpu(out)
+        _no_card_buffers_on_cpu(out, schedule)
         return schur_assemble_tiled_plain(
             T_wc, points_w, obs_uv, obs_w, lam, fx=fx, fy=fy, cx=cx, cy=cy,
             bq=bq, kernel_px2=kernel_px2, point_damping=point_damping)
     return launch_schur_system(
         *_cuda_inputs(T_wc, points_w, obs_uv, obs_w, "schur_assemble_tiled"), lam,
-        (fx, fy, cx, cy, bq, kernel_px2), point_damping, tiled=True, out=out)
+        (fx, fy, cx, cy, bq, kernel_px2), point_damping, tiled=True, out=out,
+        schedule=schedule)

@@ -48,10 +48,10 @@ _SIGNATURES = {
     "svi_stereo_match": [_P] * 6 + [_I] * 4 + [_F, _P],
     # img, out, H, W, stream
     "svi_brief_dense_fused": [_P] * 2 + [_I] * 2 + [_P],
-    # T, X, obs, obs_w, S, rhs, Hll_inv, b_l, W, pp_part, hl_part, flags,
-    # hrec, part, rhs_part, count, K, L, ks, ct, g, fx, fy, cx, cy, bq,
-    # kernel_px2, damping, stream
-    "svi_schur_system": [_P] * 16 + [_I] * 5 + [_F] * 7 + [_P],
+    # T, X, obs, obs_w, S, rhs, Hll_inv, b_l, W, pp_part, hl_part, hrec,
+    # part, rhs_part, count, schedule, K, L, ks, g, max_items, blocks, fx,
+    # fy, cx, cy, bq, kernel_px2, damping, stream
+    "svi_schur_system": [_P] * 16 + [_I] * 6 + [_F] * 7 + [_P],
     # a, b, out, B, N, M, stream
     "svi_hamming_matrix": [_P] * 3 + [_I] * 3 + [_P],
     # q_desc, q_valid, r_desc, r_valid, counts, B, P, C, Pr, cutoff, stream

@@ -46,6 +46,14 @@ take ``lam`` by value; it writes into the set's buffers through ``out=``)
 and the linear solve (cuSOLVER). :func:`graph_counts` counts the captures
 and replays.
 
+On the card's kernel route a solve loads its landmarks in the order the
+Schur product's schedule wants (``ops.ba_kernel.landmark_order``: by first
+observing keyframe) and makes that schedule, once a solve, in a fourth
+stage, ``order_landmarks``, captured and replayed as the others are; the
+result's landmarks are put back in the caller's order. The other routes
+and the CPU keep the caller's order. :func:`schur_schedule_counts` counts
+the ordered solves.
+
 Spans (``eval.timing.span``; nothing unless a profiler runs or a timer
 records) mark the call's stages, all with the call's request id:
 ``svi.ba.solve`` the call; ``svi.ba.obs_list`` the observation-list
@@ -66,6 +74,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
+import weakref
 
 import numpy as np
 import torch
@@ -193,6 +202,33 @@ def _count(entry: str) -> None:
         _graph_counts[entry] += 1
 
 
+_solves_ordered = [0]
+_last_ordered = [None]          # a weak reference to the last ordered solve's set
+
+
+def schur_schedule_counts() -> dict[str, int]:
+    """The kernel route's landmark order since the last
+    :func:`reset_schur_schedule_counts`, over every thread: the solves
+    whose landmarks were ordered, each of which made its product's
+    schedule, and the live and total (keyframe-group pair, slab) products
+    of the last one's schedule (its live count read from the device here;
+    0 and 0 once its buffer set is gone)."""
+    with _lock:
+        solves, ref = _solves_ordered[0], _last_ordered[0]
+    lm = None if ref is None else ref()
+    schedule = None if lm is None else lm.schedule
+    return dict(solves_ordered=solves,
+                live_products=0 if schedule is None else int(schedule.live),
+                total_products=(0 if schedule is None
+                                else schedule.tiling.n_tiles * schedule.tiling.n_slabs))
+
+
+def reset_schur_schedule_counts() -> None:
+    with _lock:
+        _solves_ordered[0] = 0
+        _last_ordered[0] = None
+
+
 class _LMBuffers:
     """One window shape's LM state and operands at fixed addresses, and the
     stages of an iteration, which read and write only these.
@@ -201,9 +237,13 @@ class _LMBuffers:
     / ``chi2_new`` the proposal (the graphs' outputs once captured), ``S``,
     ``rhs``, ``Hll_inv``, ``b_l`` and ``W`` the Schur system (``W`` holds
     the materialised route's ``B [6K, 3L]``; on the card's kernel route all
-    five are views of the kernels' ``out``), ``dp`` the pose step."""
+    five are views of the kernels' ``out``), ``dp`` the pose step. On the
+    card's kernel route the landmarks are held in the schedule's order
+    (``order`` maps them back) and ``schedule`` is the product's."""
 
-    STAGES = ("priors", "update", "total_chi2")    # in the order an iteration runs them
+    # order_landmarks once a solve (the card's kernel route), then the
+    # others in the order an iteration runs them
+    STAGES = ("order_landmarks", "priors", "update", "total_chi2")
 
     def __init__(self, dev, dtype, K, L, intrinsics, kernel_px2, use_kernel,
                  use_odo, use_grav, dense=True):
@@ -219,7 +259,7 @@ class _LMBuffers:
             self.obs_uv, self.maskf = z(K, L, 4), z(K, L)
         self.odo_Minv, self.wo = z(max(K - 1, 0), 4, 4), z(max(K - 1, 0))
         self.grav_d, self.grav_w = z(K, 3), z(K)
-        self.schur_out = None
+        self.schur_out = self.schedule = self.perm = self.order = None
         if use_kernel and dev.type == "cuda":
             self.schur_out = ba_kernel.schur_out(K, L, dev)
             self.S, self.rhs, self.Hll_inv, self.b_l, self.W = ba_kernel.schur_views(
@@ -238,11 +278,21 @@ class _LMBuffers:
     # -- a solve's inputs and the accepted state ------------------------------
     def load(self, T_wc, points_w, obs_uv, obs_mask, obs_w, fix_mask, odo_Minv,
              wo, grav_d, grav_w) -> None:
-        """Copy a solve's inputs in; the start is the proposal to score."""
-        self.obs_uv.copy_(obs_uv)
+        """Copy a solve's inputs in; the start is the proposal to score. On
+        the card's kernel route the landmarks go in the order of
+        ``ba_kernel.landmark_order`` and the product's schedule is made."""
         self.maskf.copy_(obs_mask)
         if obs_w is not None:
             self.maskf.mul_(obs_w)
+        if self.schur_out is None:
+            self.obs_uv.copy_(obs_uv)
+        else:
+            self.run("order_landmarks")
+            torch.index_select(obs_uv, 1, self.perm, out=self.obs_uv)
+            points_w = points_w.index_select(0, self.perm)
+            with _lock:
+                _solves_ordered[0] += 1
+                _last_ordered[0] = weakref.ref(self)
         self._load_state(T_wc, points_w, fix_mask, odo_Minv, wo, grav_d, grav_w)
 
     def _load_state(self, T_wc, points_w, fix_mask, odo_Minv, wo, grav_d, grav_w) -> None:
@@ -260,6 +310,18 @@ class _LMBuffers:
         self.T.copy_(self.T_new)
         self.X.copy_(self.X_new)
         self.chi2.copy_(self.chi2_new)
+
+    def order_landmarks(self) -> None:
+        """The card's kernel route, once a solve: ``maskf`` put in the order
+        of ``ba_kernel.landmark_order`` (``perm``; ``order`` maps it back)
+        and the product's schedule of it (``schedule``)."""
+        self.perm, self.order = ba_kernel.landmark_order(self.maskf)
+        self.maskf.copy_(self.maskf.index_select(1, self.perm))
+        self.schedule = ba_kernel.schur_schedule(self.maskf)
+
+    def points(self) -> torch.Tensor:
+        """A copy of the accepted landmarks, in the caller's order."""
+        return self.X.clone() if self.order is None else self.X.index_select(0, self.order)
 
     # -- the terms ------------------------------------------------------------
     def robust_w(self, r):
@@ -311,7 +373,7 @@ class _LMBuffers:
             S, rhs, H_ll_inv, b_l, W = assemble(
                 T, X, self.obs_uv, self.maskf, lam, fx=fx, fy=fy, cx=cx, cy=cy, bq=bq,
                 kernel_px2=self.kernel_px2, point_damping=point_damping,
-                out=self.schur_out)
+                out=self.schur_out, schedule=self.schedule)
             if self.landmark_sum is not None:
                 for dst, src in zip((S, rhs), self.landmark_sum(S, rhs)):
                     dst.copy_(src)
@@ -426,8 +488,11 @@ class _LMBuffers:
         pool = torch.cuda.graph_pool_handle()
         graphs = {}
         # a window without the pose chain and the gravity terms has no
-        # priors: an empty graph, run directly instead (it does nothing)
-        stages = [s for s in self.STAGES if s != "priors" or self.use_odo or self.use_grav]
+        # priors: an empty graph, run directly instead (it does nothing);
+        # only the kernel route orders its landmarks
+        stages = [s for s in self.STAGES
+                  if (s != "priors" or self.use_odo or self.use_grav)
+                  and (s != "order_landmarks" or self.schur_out is not None)]
         with torch.cuda.device(self.dev), torch.cuda.stream(stream):
             for stage in stages:
                 getattr(self, stage)()
@@ -862,7 +927,7 @@ def bundle_adjust(
                 break
 
         return BAResult(
-            T_wc=lm.T.clone(), points_w=lm.X.clone(), chi2_initial=chi2_init,
+            T_wc=lm.T.clone(), points_w=lm.points(), chi2_initial=chi2_init,
             chi2_final=lm.chi2.clone(),
             iterations=torch.tensor(iters, dtype=torch.int32, device=dev),
         )

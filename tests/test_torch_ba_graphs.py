@@ -55,7 +55,8 @@ def test_replayed_stages_equal_direct_ones_on_the_card():
     """Three solves of one shape (K4) and one of another (K5), every term
     on: the replayed route returns the direct route's bits (the direct route
     reached through an identity collective hook), with one capture set per
-    shape and three replays an iteration plus one a solve."""
+    shape and three replays an iteration plus two a solve (the chi^2 of the
+    start, the landmark order)."""
     dev = _card()
     problems = [tp.ba_chain_problem(32, 1024, seed) for seed in (31, 32, 33)]
     problems.append(tp.ba_chain_problem(64, 512, 34))
@@ -70,7 +71,7 @@ def test_replayed_stages_equal_direct_ones_on_the_card():
             assert torch.equal(getattr(a, f), getattr(b, f)), f
     iterations = sum(int(r.iterations) for r in replayed)
     assert counts == {"graph_capture": 2,
-                      "graph_replay": 3 * iterations + len(problems)}
+                      "graph_replay": 3 * iterations + 2 * len(problems)}
 
 
 @pytest.mark.gpu
@@ -141,3 +142,110 @@ def test_list_route_replays_its_direct_bits_on_the_card():
         for f in FIELDS:
             assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert ba.graph_counts()["graph_replay"] == 2 * (3 * iterations + len(ring))
+
+
+def _segment(dev, landmarks: int, seed: int):
+    """A map segment of the benchmark's generator (``portbench.segments``:
+    128 keyframes, each landmark seen by a short run of them, the landmarks
+    in random order) at ``landmarks`` landmarks, and its camera."""
+    from portbench import manifest
+    from portbench.segments import make_segment
+    from svi_mapper_tpu_torch.geometry.camera import StereoCamera, pinhole_from_projection
+
+    c = manifest.cell(manifest.load(), "kitti00-sv.segment-ba")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    p = make_segment({**c["traffic"], "landmarks": landmarks}, c["config"], gen, dev)
+    k = c["config"]["camera"]
+    cam = StereoCamera(*(pinhole_from_projection(k[f"{side}_projection"], k["width"],
+                                                 k["height"], device=dev)
+                         for side in ("left", "right")))
+    return p, cam
+
+
+@pytest.mark.gpu
+def test_scheduled_product_equals_the_plain_version_on_a_segment():
+    """K5 on a 128 x 4,096 segment, in the caller's (random) order with the
+    schedule the wrapper makes, and in ``landmark_order``'s order with a
+    schedule made once and kept: each within ``SCHUR_TOL`` of the plain
+    version and, as ``chip_smoke.py`` holds K5, ``S``, ``rhs`` and ``W`` no
+    further from float64 than the plain float32 version (twice its error,
+    or 1e-5); the ordered one's schedule listing under 15 % of the
+    products; the same bits twice."""
+    dev = _card()
+    p, cam = _segment(dev, 4096, 2**33 + 19)
+    fx, fy, cx, cy, bq = ba._intrinsics(cam)
+    kw = dict(fx=fx, fy=fy, cx=cx, cy=cy, bq=bq, kernel_px2=10.0, point_damping=1e-6)
+    perm, _ = ba_kernel.landmark_order(p.mask)
+    for order in (None, perm):
+        X, obs, ow = p.X, p.obs, p.mask.float()
+        schedule = None
+        if order is not None:
+            X, obs, ow = X[order], obs[:, order], ow[:, order]
+            schedule = ba_kernel.schur_schedule(ow)
+            live = int(schedule.live)
+            total = schedule.tiling.n_tiles * schedule.tiling.n_slabs
+            assert 0 < live < 0.15 * total, (live, total)
+        got = [t.clone() for t in ba_kernel.schur_assemble_tiled(
+            p.T, X, obs, ow, 1e-3, **kw, schedule=schedule)]
+        again = ba_kernel.schur_assemble_tiled(p.T, X, obs, ow, 1e-3, **kw, schedule=schedule)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        want32 = ba_kernel.schur_assemble_tiled_plain(p.T, X, obs, ow, 1e-3, **kw)
+        want64 = ba_kernel.schur_assemble_tiled_plain(
+            *(t.double() for t in (p.T, X, obs, ow)), 1e-3, **kw)
+        for nm, err in ba_kernel.schur_errors(got, want32).items():
+            assert err < ba_kernel.SCHUR_TOL[nm], (order is not None, nm, err)
+        kernel64 = ba_kernel.schur_errors(got, want64)
+        plain64 = ba_kernel.schur_errors(want32, want64)
+        for nm in ("S", "rhs", "W"):
+            assert kernel64[nm] <= max(2 * plain64[nm], 1e-5), (nm, kernel64, plain64)
+
+
+@pytest.mark.gpu
+def test_kernel_route_orders_a_shuffled_segment():
+    """``bundle_adjust`` on K5 (the segment cells' route) over a 128 x 4,096
+    segment and over the same segment with its landmarks shuffled: one
+    ordered solve and one schedule each, under 15 % of the (group pair,
+    slab) products live, the landmarks returned in the caller's order, the
+    same bits from the same input twice, and the two solves within a tenth
+    of the segment cells' limits of each other (the program met those
+    limits against float64 with ~100x to spare, ``PERF.md`` section 6)."""
+    import numpy as np
+
+    from portbench.reference import compare
+
+    dev = _card()
+    p, cam = _segment(dev, 4096, 2**33 + 23)
+    shuffle = torch.randperm(4096, generator=torch.Generator().manual_seed(5)).to(dev)
+    back = torch.argsort(shuffle)
+
+    def solve(X, obs, mask):
+        return ba.bundle_adjust(p.T, X, obs, mask, cam, p.fix, odo_M=p.odo_M,
+                                odo_w=p.odo_w, max_iterations=10,
+                                min_rel_improvement=0.0, device=dev)
+
+    ba.reset_schur_schedule_counts()
+    plain = solve(p.X, p.obs, p.mask)
+    counts = ba.schur_schedule_counts()
+    shuffled = solve(p.X[shuffle], p.obs[:, shuffle], p.mask[:, shuffle])
+    again = solve(p.X[shuffle], p.obs[:, shuffle], p.mask[:, shuffle])
+    assert counts["solves_ordered"] == 1
+    assert counts["total_products"] == 36 * 256
+    assert 0 < counts["live_products"] < 0.15 * counts["total_products"], counts
+    assert ba.schur_schedule_counts()["solves_ordered"] == 3
+    for f in FIELDS:
+        assert torch.equal(getattr(shuffled, f), getattr(again, f)), f
+
+    def answer(r, X):
+        return dict(T=r.T_wc.double().cpu().numpy(), X=X.double().cpu().numpy(),
+                    chi2=float(r.chi2_final), iterations=int(r.iterations))
+
+    a = answer(plain, plain.points_w)
+    b = answer(shuffled, shuffled.points_w[back])
+    gaps = compare.numbers(b, a)
+    limits = dict(iterations_gap=0, centre_gap_m=0.005, rotation_gap_rad=1e-5,
+                  landmark_gap_m=0.02, chi2_gap=1e-5)
+    assert all(gaps[n] <= v for n, v in limits.items()), gaps
+    # the landmarks are the caller's: close to where the caller's started
+    moved = np.linalg.norm(a["X"] - p.X.double().cpu().numpy(), axis=1)
+    assert np.median(moved) < 1.0
