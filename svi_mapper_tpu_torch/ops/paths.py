@@ -18,8 +18,9 @@ Call sites:
     profile entry, has no caller on a path);
   * ``solvers.ba.bundle_adjust`` -> ``ops.ba_kernel.schur_assemble`` (K4,
     K <= 32) or ``schur_assemble_tiled`` (K5, K % 32 == 0 up to 128), once
-    per LM iteration (``solvers.ba.schur_kernel_auto``); other windows take
-    the materialised Jacobians and launch neither;
+    per LM iteration, where ``solvers.ba.schur_route`` picks the kernel
+    route; windows past 128 keyframes take the observation-list route and
+    the others the materialised Jacobians, and launch neither;
   * ``mapping.closure._pool_nn_counts`` -> ``ops.hamming.pool_nn_counts``
     (K6, the fused pool-count entry);
   * the exact branch of ``mapping.closure.match_pools`` ->
@@ -226,7 +227,7 @@ def kernel_paths(ba_window_ks: tuple[int, ...] = (8, 32, 64),
     """The route of every hot operation for tensors on ``device`` (None =
     CUDA), the BA windows ``ba_window_ks`` included, with the launch
     counters as they stand."""
-    from svi_mapper_tpu_torch.solvers.ba import SCHUR_KERNEL_MAX_K, schur_kernel_auto
+    from svi_mapper_tpu_torch.solvers.ba import schur_route
 
     dev = torch.device("cuda" if device is None else device)
     on_card = dev.type == "cuda"
@@ -241,11 +242,6 @@ def kernel_paths(ba_window_ks: tuple[int, ...] = (8, 32, 64),
         "closure_match_probabilistic": "torch:matmul",
     }
     for K in ba_window_ks:
-        if not schur_kernel_auto(K, torch.float32, dev):
-            paths[f"ba_schur_K{K}"] = "torch:materialised"
-        elif K <= SCHUR_KERNEL_MAX_K:
-            paths[f"ba_schur_K{K}"] = "cuda:schur_assemble"
-        else:
-            paths[f"ba_schur_K{K}"] = "cuda:schur_assemble_tiled"
+        paths[f"ba_schur_K{K}"] = schur_route(K, torch.float32, dev, None).path(K)
     paths["launches"] = launch_counts()
     return paths

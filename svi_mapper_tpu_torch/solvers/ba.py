@@ -16,43 +16,33 @@ block-dense and batched:
 Gauge freedom is fixed by masking updates of designated poses
 (``fix_mask``), the analog of g2o's setFixed (Cg2oOptimizer.cpp:342-360).
 
-Three routes to the Schur system: the fused assembly of ``ops.ba_kernel``
-(hand-written CUDA kernels K4 / K5 on the card, their plain versions on the
-CPU); the observation-list route, for windows past the kernels' largest
-(``SCHUR_KERNEL_TILED_MAX_K``) on every device: the ``[K, L]`` mask becomes
-a list of the observed pairs and of each landmark's co-visible keyframe
-pairs once a solve, and ``S`` is summed over those pairs, so that a whole
-map (hundreds of keyframes, ~1 % of the ``[K, L]`` slots observed) holds
-no ``[K, L]`` tensor beyond its inputs; and the materialised-Jacobian
-route, for the other windows and the default on the CPU.
+Three routes to the Schur system, each a class of buffer sets, of which
+:func:`schur_route` picks one a solve: the materialised Jacobians
+(:class:`_MaterialisedBuffers`, the CPU's default), the fused assembly of
+``ops.ba_kernel`` (K4 / K5 on the card, :class:`_CardKernelBuffers`; their
+plain versions elsewhere, :class:`_KernelBuffers`) and, for windows past
+the kernels' largest, the observation-list route (:class:`_ObsBuffers`).
 
 The LM loop is a Python loop. One iteration reads two flags (accept, done)
 from the device in ONE transfer; the damping ``lam`` lives on the host as a
 float32, so the kernels get it by value.
 
-The loop's state and operands live in one set of buffers per window shape
-and setting (:class:`_LMBuffers`; the last :data:`LM_BUFFER_SETS` sets are
-kept, across threads): a solve copies its inputs in and returns copies of
-its results. Three stages of an iteration read and write nothing else:
-``priors`` (the pose chain and the gravity terms, added into ``S`` and
-``rhs``), ``update`` (back-substitution and the pose update, into the
-proposal) and ``total_chi2`` (of the proposal). On a CUDA device
-each is captured once per set as a CUDA graph and replayed from then on, so
-that the host issues one launch for each where it issued tens to hundreds;
-on the CPU, under the sharded BA's collective hook (``_landmark_sum``) and
-under a ``TorchDispatchMode`` (which a replay would bypass) the same
-functions run directly. Two stages stay eager: the Schur assembly (K4 / K5
-take ``lam`` by value; it writes into the set's buffers through ``out=``)
-and the linear solve (cuSOLVER). :func:`graph_counts` counts the captures
-and replays.
-
-On the card's kernel route a solve loads its landmarks in the order the
-Schur product's schedule wants (``ops.ba_kernel.landmark_order``: by first
-observing keyframe) and makes that schedule, once a solve, in a fourth
-stage, ``order_landmarks``, captured and replayed as the others are; the
-result's landmarks are put back in the caller's order. The other routes
-and the CPU keep the caller's order. :func:`schur_schedule_counts` counts
-the ordered solves.
+The loop's state and operands live in one set of buffers per window shape,
+route and setting (the last :data:`LM_BUFFER_SETS` sets are kept, across
+threads): a solve copies its inputs in and returns copies of its results.
+Three stages of an iteration read and write nothing else: ``priors`` (the
+pose chain and the gravity terms, added into ``S`` and ``rhs``),
+``update`` (back-substitution and the pose update, into the proposal) and
+``total_chi2`` (of the proposal); the card's kernel route adds
+``order_landmarks``, once a solve. On a CUDA device each is captured once
+per set as a CUDA graph and replayed from then on, so that the host issues
+one launch for each where it issued tens to hundreds; on the CPU, under
+the sharded BA's collective hook (``_landmark_sum``) and under a
+``TorchDispatchMode`` (which a replay would bypass) the same functions run
+directly. Two stages stay eager: the Schur assembly (K4 / K5 take ``lam``
+by value) and the linear solve (cuSOLVER). :func:`graph_counts`,
+:func:`obs_route_counts` and :func:`schur_schedule_counts` read one store
+of counters.
 
 Spans (``eval.timing.span``; nothing unless a profiler runs or a timer
 records) mark the call's stages, all with the call's request id:
@@ -65,8 +55,7 @@ child ``svi.ba.pair_product`` sums ``S`` over the co-visible pairs),
 the gravity terms), ``svi.ba.linear_solve`` (gauge fixing and the
 Cholesky), ``svi.ba.update`` (back-substitution and the pose update),
 ``svi.ba.chi2`` (the proposal's) and ``svi.ba.flag_read`` (the one host
-read). A replayed stage runs inside its span. :func:`obs_route_counts`
-counts the observation-list route's solves, lists and buffer sets.
+read). A replayed stage runs inside its span.
 """
 
 from __future__ import annotations
@@ -90,10 +79,8 @@ from svi_mapper_tpu_torch.solvers.pose_graph import adjoint as _adjoint
 from svi_mapper_tpu_torch.utils.device import require_fp32_matmul, resolve_device
 
 # largest keyframe window the single-pass fused kernel
-# (ops.ba_kernel.schur_assemble) takes; windows past it use the K-tiled
-# kernel (schur_assemble_tiled, 32 keyframes per tile) up to
-# SCHUR_KERNEL_TILED_MAX_K; windows past that take the observation-list
-# route, anything else the materialised route.
+# (ops.ba_kernel.schur_assemble) takes, and the K-tiled kernel
+# (schur_assemble_tiled, 32 keyframes per tile); see schur_route
 SCHUR_KERNEL_MAX_K = 32
 SCHUR_KERNEL_TILED_MAX_K = 128
 
@@ -176,34 +163,60 @@ def _on(t, dev, dtype=None):
 
 
 # ---------------------------------------------------------------------------
-# the LM loop's buffers and stages
+# the LM loop's buffers and stages: a core every route shares, a subclass
+# per route, and the counters
 # ---------------------------------------------------------------------------
 
 _lock = threading.Lock()
 _buffer_sets: collections.OrderedDict = collections.OrderedDict()
-_graph_counts = {"graph_capture": 0, "graph_replay": 0}
+# every counter below by name (one not counted since its reset reads 0), and
+# under "last_ordered" a weak reference to the last ordered solve's buffer set
+_counts: collections.Counter = collections.Counter()
+
+
+def _count(last_ordered=None, **adds: int) -> None:
+    """Add ``adds`` to the named counters; ``last_ordered``, a buffer set,
+    becomes the one :func:`schur_schedule_counts` reads."""
+    with _lock:
+        for name, n in adds.items():
+            _counts[name] += n
+        if last_ordered is not None:
+            _counts["last_ordered"] = weakref.ref(last_ordered)
+
+
+def _read(*names: str) -> dict[str, int]:
+    with _lock:
+        return {name: _counts[name] for name in names}
+
+
+def _reset(*names: str) -> None:
+    with _lock:
+        for name in names:
+            del _counts[name]
 
 
 def graph_counts() -> dict[str, int]:
     """CUDA-graph captures (one per buffer set, its stages) and replays (one
     per stage run) of the LM loop since the last
     :func:`reset_graph_counts`, over every thread."""
-    with _lock:
-        return dict(_graph_counts)
+    return _read("graph_capture", "graph_replay")
 
 
 def reset_graph_counts() -> None:
-    with _lock:
-        _graph_counts.update(graph_capture=0, graph_replay=0)
+    _reset("graph_capture", "graph_replay")
 
 
-def _count(entry: str) -> None:
-    with _lock:
-        _graph_counts[entry] += 1
+def obs_route_counts() -> dict[str, int]:
+    """The observation-list route since the last
+    :func:`reset_obs_route_counts`, over every thread: solves, the
+    observations and co-visible pairs (one per landmark and pair of its
+    keyframes, itself with itself included) they listed, and the buffer
+    sets made for it."""
+    return _read("solves", "observations", "pairs", "buffer_sets")
 
 
-_solves_ordered = [0]
-_last_ordered = [None]          # a weak reference to the last ordered solve's set
+def reset_obs_route_counts() -> None:
+    _reset("solves", "observations", "pairs", "buffer_sets")
 
 
 def schur_schedule_counts() -> dict[str, int]:
@@ -214,7 +227,7 @@ def schur_schedule_counts() -> dict[str, int]:
     of the last one's schedule (its live count read from the device here;
     0 and 0 once its buffer set is gone)."""
     with _lock:
-        solves, ref = _solves_ordered[0], _last_ordered[0]
+        solves, ref = _counts["solves_ordered"], _counts.get("last_ordered")
     lm = None if ref is None else ref()
     schedule = None if lm is None else lm.schedule
     return dict(solves_ordered=solves,
@@ -224,78 +237,49 @@ def schur_schedule_counts() -> dict[str, int]:
 
 
 def reset_schur_schedule_counts() -> None:
-    with _lock:
-        _solves_ordered[0] = 0
-        _last_ordered[0] = None
+    _reset("solves_ordered", "last_ordered")
 
 
 class _LMBuffers:
     """One window shape's LM state and operands at fixed addresses, and the
-    stages of an iteration, which read and write only these.
+    stages of an iteration, which read and write only these: what every
+    route shares. ``T`` / ``X`` / ``chi2`` hold the accepted state,
+    ``T_new`` / ``X_new`` / ``chi2_new`` the proposal (the graphs' outputs
+    once captured), ``dp`` the pose step. A route's subclass holds the
+    observations and the Schur system (``S``, ``rhs``, ``Hll_inv``, ``b_l``,
+    ``W``) and owns what touches them."""
 
-    ``T`` / ``X`` / ``chi2`` hold the accepted state, ``T_new`` / ``X_new``
-    / ``chi2_new`` the proposal (the graphs' outputs once captured), ``S``,
-    ``rhs``, ``Hll_inv``, ``b_l`` and ``W`` the Schur system (``W`` holds
-    the materialised route's ``B [6K, 3L]``; on the card's kernel route all
-    five are views of the kernels' ``out``), ``dp`` the pose step. On the
-    card's kernel route the landmarks are held in the schedule's order
-    (``order`` maps them back) and ``schedule`` is the product's."""
+    # the stages captured on the card, in the order a solve runs them
+    STAGES = ("priors", "update", "total_chi2")
 
-    # order_landmarks once a solve (the card's kernel route), then the
-    # others in the order an iteration runs them
-    STAGES = ("order_landmarks", "priors", "update", "total_chi2")
-
-    def __init__(self, dev, dtype, K, L, intrinsics, kernel_px2, use_kernel,
-                 use_odo, use_grav, dense=True):
+    def __init__(self, dev, dtype, K, L, intrinsics, kernel_px2, use_odo, use_grav):
         z = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)  # noqa: E731
         self.dev, self.K, self.L = dev, K, L
         self.intrinsics, self.kernel_px2 = intrinsics, kernel_px2
-        self.use_kernel, self.use_odo, self.use_grav = use_kernel, use_odo, use_grav
+        self.use_odo, self.use_grav = use_odo, use_grav
         self.T, self.T_new = z(K, 4, 4), z(K, 4, 4)
         self.X, self.X_new = z(L, 3), z(L, 3)
         self.chi2, self.chi2_new = z(), z()
         self.free, self.dp = z(K), z(K, 6)
-        if dense:
-            self.obs_uv, self.maskf = z(K, L, 4), z(K, L)
         self.odo_Minv, self.wo = z(max(K - 1, 0), 4, 4), z(max(K - 1, 0))
         self.grav_d, self.grav_w = z(K, 3), z(K)
-        self.schur_out = self.schedule = self.perm = self.order = None
-        if use_kernel and dev.type == "cuda":
-            self.schur_out = ba_kernel.schur_out(K, L, dev)
-            self.S, self.rhs, self.Hll_inv, self.b_l, self.W = ba_kernel.schur_views(
-                self.schur_out)
-        else:
-            self.S, self.rhs = z(K, 6, K, 6), z(K, 6)
-            self.Hll_inv, self.b_l = z(L, 3, 3), z(L, 3)
-            if dense:
-                self.W = z(3, 6 * K, L) if use_kernel else z(6 * K, 3 * L)
         self.kk = torch.arange(K, device=dev)
         self.eye6 = torch.eye(6, dtype=dtype, device=dev)
         self.landmark_sum = None
         self.request = None                           # the solve's, for its spans
         self.graphs: dict[str, torch.cuda.CUDAGraph] = {}
 
-    # -- a solve's inputs and the accepted state ------------------------------
-    def load(self, T_wc, points_w, obs_uv, obs_mask, obs_w, fix_mask, odo_Minv,
-             wo, grav_d, grav_w) -> None:
-        """Copy a solve's inputs in; the start is the proposal to score. On
-        the card's kernel route the landmarks go in the order of
-        ``ba_kernel.landmark_order`` and the product's schedule is made."""
-        self.maskf.copy_(obs_mask)
-        if obs_w is not None:
-            self.maskf.mul_(obs_w)
-        if self.schur_out is None:
-            self.obs_uv.copy_(obs_uv)
-        else:
-            self.run("order_landmarks")
-            torch.index_select(obs_uv, 1, self.perm, out=self.obs_uv)
-            points_w = points_w.index_select(0, self.perm)
-            with _lock:
-                _solves_ordered[0] += 1
-                _last_ordered[0] = weakref.ref(self)
-        self._load_state(T_wc, points_w, fix_mask, odo_Minv, wo, grav_d, grav_w)
+    # -- a solve's set, its inputs and the accepted state ---------------------
+    @classmethod
+    def take(cls, key, obs_mask, request, *args) -> tuple[_LMBuffers, object]:
+        """The buffer set of ``key`` (a new one is ``cls(*args)``) and what
+        a solve of ``obs_mask`` passes to ``load``: nothing here."""
+        return _buffers(key, lambda _: cls(*args)), None
 
-    def _load_state(self, T_wc, points_w, fix_mask, odo_Minv, wo, grav_d, grav_w) -> None:
+    def load(self, T_wc, points_w, obs_uv, obs_mask, obs_w, fix_mask, odo_Minv, wo, grav_d,
+             grav_w, prepared) -> None:
+        """Copy a solve's inputs in; the start is the proposal to score."""
+        points_w = self._load_observations(points_w, obs_uv, obs_mask, obs_w, prepared)
         self.T_new.copy_(T_wc)
         self.X_new.copy_(points_w)
         self.free.copy_(~fix_mask)
@@ -311,17 +295,14 @@ class _LMBuffers:
         self.X.copy_(self.X_new)
         self.chi2.copy_(self.chi2_new)
 
-    def order_landmarks(self) -> None:
-        """The card's kernel route, once a solve: ``maskf`` put in the order
-        of ``ba_kernel.landmark_order`` (``perm``; ``order`` maps it back)
-        and the product's schedule of it (``schedule``)."""
-        self.perm, self.order = ba_kernel.landmark_order(self.maskf)
-        self.maskf.copy_(self.maskf.index_select(1, self.perm))
-        self.schedule = ba_kernel.schur_schedule(self.maskf)
-
     def points(self) -> torch.Tensor:
         """A copy of the accepted landmarks, in the caller's order."""
-        return self.X.clone() if self.order is None else self.X.index_select(0, self.order)
+        return self.X.clone()
+
+    def _keep(self, *system) -> None:
+        """``(S, rhs, H_ll_inv, b_l, W)`` into the set's buffers."""
+        for dst, src in zip((self.S, self.rhs, self.Hll_inv, self.b_l, self.W), system):
+            dst.copy_(src)
 
     # -- the terms ------------------------------------------------------------
     def robust_w(self, r):
@@ -359,66 +340,6 @@ class _LMBuffers:
         return torch.sum(self.grav_w * torch.sum(r_g * r_g, dim=-1))
 
     # -- the stages -------------------------------------------------------------
-    def assemble(self, lam: float, point_damping: float) -> None:
-        """The damped Schur system of the accepted state, into ``S``,
-        ``rhs``, ``Hll_inv``, ``b_l`` and ``W`` (eager)."""
-        T, X, K, L = self.T, self.X, self.K, self.L
-        kk, eye6 = self.kk, self.eye6
-        fx, fy, cx, cy, bq = self.intrinsics
-        if self.use_kernel:
-            # fused assembly: residuals/weights/Jacobians never materialised;
-            # returns the UNdamped S and the back-substitution operands
-            assemble = (ba_kernel.schur_assemble if K <= SCHUR_KERNEL_MAX_K
-                        else ba_kernel.schur_assemble_tiled)
-            S, rhs, H_ll_inv, b_l, W = assemble(
-                T, X, self.obs_uv, self.maskf, lam, fx=fx, fy=fy, cx=cx, cy=cy, bq=bq,
-                kernel_px2=self.kernel_px2, point_damping=point_damping,
-                out=self.schur_out, schedule=self.schedule)
-            if self.landmark_sum is not None:
-                for dst, src in zip((S, rhs), self.landmark_sum(S, rhs)):
-                    dst.copy_(src)
-            S[kk, :, kk, :] += lam * eye6
-        else:
-            dtype = X.dtype
-            r, p_c = _residuals(T, X, self.obs_uv, fx, fy, cx, cy, bq)
-            w = self.robust_w(r)                                     # [K,L]
-            # in-front mask (behind-camera obs excluded)
-            w = w * (p_c[..., 2] > 0.05).to(dtype)
-            J_pose, J_point = _jacobians(p_c, T, fx, fy, bq)
-
-            Jpw4 = J_pose * w[..., None, None]                       # [K,L,4,6]
-            Jp = J_pose.reshape(K, L * 4, 6)
-            Jpw = Jpw4.reshape(K, L * 4, 6)
-            Jl = J_point.permute(1, 0, 2, 3).reshape(L, K * 4, 3)
-            Jlw = (J_point * w[..., None, None]).permute(1, 0, 2, 3).reshape(L, K * 4, 3)
-            rk = r.reshape(K, L * 4, 1)
-            rl = r.permute(1, 0, 2).reshape(L, K * 4, 1)
-
-            H_pp = Jpw.transpose(1, 2) @ Jp                          # [K,6,6]
-            H_ll = Jlw.transpose(1, 2) @ Jl                          # [L,3,3]
-            H_pl = Jpw4.transpose(-1, -2) @ J_point                  # [K,L,6,3]
-            b_p = (Jpw.transpose(1, 2) @ rk)[..., 0]                 # [K,6]
-            b_l = (Jlw.transpose(1, 2) @ rl)[..., 0]                 # [L,3]
-
-            # Levenberg damping (of H_pp: below, after the landmark sum)
-            H_ll = H_ll + (lam + point_damping) * torch.eye(3, dtype=dtype, device=X.device)
-            H_ll_inv = _inv3x3(H_ll)                                 # [L,3,3]
-
-            # Schur complement S = H_pp_diag - W Hll^-1 W^T as ONE
-            # [K6, L3] x [L3, K6] product
-            W_Hinv = H_pl @ H_ll_inv[None]                           # [K,L,6,3]
-            A = W_Hinv.permute(0, 2, 1, 3).reshape(K * 6, L * 3)
-            W = H_pl.permute(0, 2, 1, 3).reshape(K * 6, L * 3)
-            S = (-(A @ W.T)).reshape(K, 6, K, 6)
-            rhs = b_p - (A @ b_l.reshape(L * 3)).reshape(K, 6)
-            if self.landmark_sum is not None:
-                S, H_pp, rhs = self.landmark_sum(S, H_pp, rhs)
-            S[kk, :, kk, :] += H_pp + lam * eye6
-        if self.schur_out is None:
-            for dst, src in zip((self.S, self.rhs, self.Hll_inv, self.b_l, self.W),
-                                (S, rhs, H_ll_inv, b_l, W)):
-                dst.copy_(src)
-
     def priors(self) -> None:
         """The pose chain's and the gravity unaries' terms of the accepted
         state, added into ``S`` and ``rhs``."""
@@ -456,21 +377,10 @@ class _LMBuffers:
         dp = -cholesky_solve_or_nan(Sm.reshape(K * 6, K * 6), rhs.reshape(K * 6))
         torch.mul(dp.reshape(K, 6), free[:, None], out=self.dp)
 
-    def update(self) -> None:
-        """The proposal ``(T_new, X_new)`` of the step ``dp``."""
-        K, L, dp = self.K, self.L, self.dp
-        # back-substitute landmark updates
-        if self.use_kernel:
-            Wdp = torch.einsum("bql,q->lb", self.W, dp.reshape(K * 6))  # [L,3]
-        else:
-            Wdp = (self.W.T @ dp.reshape(K * 6)).reshape(L, 3)
-        dx = -(self.Hll_inv @ (self.b_l + Wdp)[..., None])[..., 0]
-        self.T_new, self.X_new = se3.apply_left_update(dp, self.T), self.X + dx
-
     def total_chi2(self) -> None:
         """The proposal's chi^2, into ``chi2_new``."""
         T, X = self.T_new, self.X_new
-        r, _ = _residuals(T, X, self.obs_uv, *self.intrinsics)
+        r = self.residuals(T, X)
         chi2_l = _chi2(r, self.robust_w(r))
         if self.landmark_sum is not None:
             (chi2_l,) = self.landmark_sum(chi2_l)
@@ -488,11 +398,8 @@ class _LMBuffers:
         pool = torch.cuda.graph_pool_handle()
         graphs = {}
         # a window without the pose chain and the gravity terms has no
-        # priors: an empty graph, run directly instead (it does nothing);
-        # only the kernel route orders its landmarks
-        stages = [s for s in self.STAGES
-                  if (s != "priors" or self.use_odo or self.use_grav)
-                  and (s != "order_landmarks" or self.schur_out is not None)]
+        # priors: an empty graph, run directly instead (it does nothing)
+        stages = [s for s in self.STAGES if s != "priors" or self.use_odo or self.use_grav]
         with torch.cuda.device(self.dev), torch.cuda.stream(stream):
             for stage in stages:
                 getattr(self, stage)()
@@ -506,7 +413,7 @@ class _LMBuffers:
                 graphs[stage] = graph
         torch.cuda.current_stream(self.dev).wait_stream(stream)
         self.graphs = graphs
-        _count("graph_capture")
+        _count(graph_capture=1)
 
     def run(self, stage: str) -> None:
         graph = self.graphs.get(stage)
@@ -514,7 +421,170 @@ class _LMBuffers:
             getattr(self, stage)()
         else:
             graph.replay()
-            _count("graph_replay")
+            _count(graph_replay=1)
+
+
+class _MaterialisedBuffers(_LMBuffers):
+    """The materialised route: the observations as ``obs_uv [K, L, 4]`` and
+    ``maskf [K, L]``, the residuals and Jacobians of every pair
+    materialised, ``W`` the ``B [6K, 3L]`` of the Schur complement."""
+
+    def __init__(self, dev, dtype, K, L, *settings):
+        super().__init__(dev, dtype, K, L, *settings)
+        z = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)  # noqa: E731
+        self.obs_uv, self.maskf = z(K, L, 4), z(K, L)
+        self.S, self.rhs, self.Hll_inv, self.b_l, self.W = self._schur_system(z)
+
+    def _schur_system(self, z):
+        K, L = self.K, self.L
+        return z(K, 6, K, 6), z(K, 6), z(L, 3, 3), z(L, 3), z(6 * K, 3 * L)
+
+    @staticmethod
+    def path(K: int) -> str:
+        """The route's name in ``ops.paths.kernel_paths``."""
+        return "torch:materialised"
+
+    def _load_observations(self, points_w, obs_uv, obs_mask, obs_w, prepared):
+        """A solve's observations in; its landmarks in the set's order out."""
+        self.maskf.copy_(obs_mask)
+        if obs_w is not None:
+            self.maskf.mul_(obs_w)
+        self.obs_uv.copy_(obs_uv)
+        return points_w
+
+    def residuals(self, T, X):
+        return _residuals(T, X, self.obs_uv, *self.intrinsics)[0]
+
+    def assemble(self, lam: float, point_damping: float) -> None:
+        """The damped Schur system of the accepted state, into ``S``,
+        ``rhs``, ``Hll_inv``, ``b_l`` and ``W`` (eager)."""
+        T, X, K, L = self.T, self.X, self.K, self.L
+        fx, fy, cx, cy, bq = self.intrinsics
+        dtype = X.dtype
+        r, p_c = _residuals(T, X, self.obs_uv, fx, fy, cx, cy, bq)
+        w = self.robust_w(r)                                     # [K,L]
+        # in-front mask (behind-camera obs excluded)
+        w = w * (p_c[..., 2] > 0.05).to(dtype)
+        J_pose, J_point = _jacobians(p_c, T, fx, fy, bq)
+
+        Jpw4 = J_pose * w[..., None, None]                       # [K,L,4,6]
+        Jp = J_pose.reshape(K, L * 4, 6)
+        Jpw = Jpw4.reshape(K, L * 4, 6)
+        Jl = J_point.permute(1, 0, 2, 3).reshape(L, K * 4, 3)
+        Jlw = (J_point * w[..., None, None]).permute(1, 0, 2, 3).reshape(L, K * 4, 3)
+        rk = r.reshape(K, L * 4, 1)
+        rl = r.permute(1, 0, 2).reshape(L, K * 4, 1)
+
+        H_pp = Jpw.transpose(1, 2) @ Jp                          # [K,6,6]
+        H_ll = Jlw.transpose(1, 2) @ Jl                          # [L,3,3]
+        H_pl = Jpw4.transpose(-1, -2) @ J_point                  # [K,L,6,3]
+        b_p = (Jpw.transpose(1, 2) @ rk)[..., 0]                 # [K,6]
+        b_l = (Jlw.transpose(1, 2) @ rl)[..., 0]                 # [L,3]
+
+        # Levenberg damping (of H_pp: below, after the landmark sum)
+        H_ll = H_ll + (lam + point_damping) * torch.eye(3, dtype=dtype, device=X.device)
+        H_ll_inv = _inv3x3(H_ll)                                 # [L,3,3]
+
+        # Schur complement S = H_pp_diag - W Hll^-1 W^T as ONE
+        # [K6, L3] x [L3, K6] product
+        W_Hinv = H_pl @ H_ll_inv[None]                           # [K,L,6,3]
+        A = W_Hinv.permute(0, 2, 1, 3).reshape(K * 6, L * 3)
+        W = H_pl.permute(0, 2, 1, 3).reshape(K * 6, L * 3)
+        S = (-(A @ W.T)).reshape(K, 6, K, 6)
+        rhs = b_p - (A @ b_l.reshape(L * 3)).reshape(K, 6)
+        if self.landmark_sum is not None:
+            S, H_pp, rhs = self.landmark_sum(S, H_pp, rhs)
+        S[self.kk, :, self.kk, :] += H_pp + lam * self.eye6
+        self._keep(S, rhs, H_ll_inv, b_l, W)
+
+    def update(self) -> None:
+        """The proposal ``(T_new, X_new)`` of the step ``dp``."""
+        dx = -(self.Hll_inv @ (self.b_l + self._Wt_dp())[..., None])[..., 0]
+        self.T_new, self.X_new = se3.apply_left_update(self.dp, self.T), self.X + dx
+
+    def _Wt_dp(self):
+        """``W^T dp``, ``[L, 3]``."""
+        return (self.W.T @ self.dp.reshape(self.K * 6)).reshape(self.L, 3)
+
+
+class _KernelBuffers(_MaterialisedBuffers):
+    """The kernel route off the card: the plain versions of K4 / K5
+    (``ops.ba_kernel``) in the caller's landmark order; ``W`` as planes
+    ``[3, 6K, L]``."""
+
+    schur_out = schedule = None          # the plain versions allocate their outputs
+
+    @staticmethod
+    def assembler(K: int):
+        """K4 where the single-pass kernel takes the window, else K5."""
+        return (ba_kernel.schur_assemble if K <= SCHUR_KERNEL_MAX_K
+                else ba_kernel.schur_assemble_tiled)
+
+    @classmethod
+    def path(cls, K: int) -> str:
+        return f"torch:{cls.assembler(K).__name__}_plain"
+
+    def _schur_system(self, z):
+        K, L = self.K, self.L
+        return z(K, 6, K, 6), z(K, 6), z(L, 3, 3), z(L, 3), z(3, 6 * K, L)
+
+    def assemble(self, lam: float, point_damping: float) -> None:
+        # K4 / K5 never materialise residuals, weights or Jacobians, and
+        # return the UNdamped S and the back-substitution operands
+        fx, fy, cx, cy, bq = self.intrinsics
+        S, rhs, H_ll_inv, b_l, W = self.assembler(self.K)(
+            self.T, self.X, self.obs_uv, self.maskf, lam, fx=fx, fy=fy, cx=cx, cy=cy, bq=bq,
+            kernel_px2=self.kernel_px2, point_damping=point_damping, out=self.schur_out,
+            schedule=self.schedule)
+        if self.landmark_sum is not None:
+            for dst, src in zip((S, rhs), self.landmark_sum(S, rhs)):
+                dst.copy_(src)
+        S[self.kk, :, self.kk, :] += lam * self.eye6
+        self._keep(S, rhs, H_ll_inv, b_l, W)
+
+    def _Wt_dp(self):
+        return torch.einsum("bql,q->lb", self.W, self.dp.reshape(self.K * 6))
+
+
+class _CardKernelBuffers(_KernelBuffers):
+    """The kernel route on the card: K4 / K5 write into ``schur_out``'s
+    buffers (``S`` .. ``W`` are views of them); a solve's landmarks are held
+    in ``ba_kernel.landmark_order``'s order and the product's schedule is
+    made of it, once a solve (``order_landmarks``)."""
+
+    STAGES = ("order_landmarks",) + _LMBuffers.STAGES
+
+    @classmethod
+    def path(cls, K: int) -> str:
+        return f"cuda:{cls.assembler(K).__name__}"
+
+    def _schur_system(self, z):
+        self.schur_out = ba_kernel.schur_out(self.K, self.L, self.dev)
+        return ba_kernel.schur_views(self.schur_out)
+
+    def _load_observations(self, points_w, obs_uv, obs_mask, obs_w, prepared):
+        self.maskf.copy_(obs_mask)
+        if obs_w is not None:
+            self.maskf.mul_(obs_w)
+        self.run("order_landmarks")
+        torch.index_select(obs_uv, 1, self.perm, out=self.obs_uv)
+        points_w = points_w.index_select(0, self.perm)
+        _count(solves_ordered=1, last_ordered=self)
+        return points_w
+
+    def order_landmarks(self) -> None:
+        """``maskf`` put in the order of ``ba_kernel.landmark_order``
+        (``perm``; ``order`` maps it back) and the product's schedule of it
+        (``schedule``)."""
+        self.perm, self.order = ba_kernel.landmark_order(self.maskf)
+        self.maskf.copy_(self.maskf.index_select(1, self.perm))
+        self.schedule = ba_kernel.schur_schedule(self.maskf)
+
+    def points(self) -> torch.Tensor:
+        return self.X.index_select(0, self.order)
+
+    def _keep(self, *system) -> None:
+        """Nothing: the kernels wrote the system into the set's buffers."""
 
 
 # ---------------------------------------------------------------------------
@@ -524,23 +594,6 @@ class _LMBuffers:
 # co-visible pairs are summed into S in chunks of this many, each run of one
 # keyframe pair padded to whole chunks
 PAIR_CHUNK = 32
-
-_obs_counts = {"solves": 0, "observations": 0, "pairs": 0, "buffer_sets": 0}
-
-
-def obs_route_counts() -> dict[str, int]:
-    """The observation-list route since the last
-    :func:`reset_obs_route_counts`, over every thread: solves, the
-    observations and co-visible pairs (one per landmark and pair of its
-    keyframes, itself with itself included) they listed, and the buffer
-    sets made for it."""
-    with _lock:
-        return dict(_obs_counts)
-
-
-def reset_obs_route_counts() -> None:
-    with _lock:
-        _obs_counts.update(solves=0, observations=0, pairs=0, buffer_sets=0)
 
 
 def _capacity(n: int) -> int:
@@ -648,8 +701,7 @@ class _ObsBuffers(_LMBuffers):
 
     def __init__(self, dev, dtype, K, L, intrinsics, kernel_px2, use_odo, use_grav,
                  capacities):
-        super().__init__(dev, dtype, K, L, intrinsics, kernel_px2, False, use_odo, use_grav,
-                         dense=False)
+        super().__init__(dev, dtype, K, L, intrinsics, kernel_px2, use_odo, use_grav)
         n, n_l, n_k, n_chunks, n_seg, n_c = capacities
         z = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)  # noqa: E731
         i = lambda *shape: torch.zeros(shape, dtype=torch.int64, device=dev)  # noqa: E731
@@ -660,12 +712,29 @@ class _ObsBuffers(_LMBuffers):
         self.pair_a, self.pair_b = i(n_chunks * PAIR_CHUNK), i(n_chunks * PAIR_CHUNK)
         self.seg_chunks, self.seg_rows, self.seg_rows_t = i(n_seg, n_c), i(n_seg), i(n_seg)
         self.S_rows = z(K * K + 1, 36)                 # the flat block grid and a spare row
+        self.S, self.rhs = z(K, 6, K, 6), z(K, 6)
+        self.Hll_inv, self.b_l = z(L, 3, 3), z(L, 3)
         self.W = z(n, 6, 3)
-        with _lock:
-            _obs_counts["buffer_sets"] += 1
+        _count(buffer_sets=1)
 
-    def load(self, T_wc, points_w, obs_uv, obs_mask, obs_w, fix_mask, odo_Minv,
-             wo, grav_d, grav_w, lists: _ObsLists = None) -> None:
+    @staticmethod
+    def path(K: int) -> str:
+        return "torch:observation_list"
+
+    @classmethod
+    def take(cls, key, obs_mask, request, *args) -> tuple[_LMBuffers, _ObsLists]:
+        """The solve's lists and a set whose capacities hold them (where the
+        set of ``key`` does not, one that holds both replaces it)."""
+        with span("svi.ba.obs_list", request):
+            lists = _observation_lists(obs_mask)
+        _count(solves=1, observations=lists.k.numel(), pairs=lists.pairs)
+        need = lists.capacities
+        return _buffers(
+            key, lambda old: cls(*args, need if old is None
+                                 else tuple(map(max, need, old.capacities))),
+            fits=lambda lm: all(map(int.__ge__, lm.capacities, need))), lists
+
+    def _load_observations(self, points_w, obs_uv, obs_mask, obs_w, lists: _ObsLists):
         n = lists.k.numel()
         spare_obs = self.k_idx.numel() - 1             # a padding observation
         spare_chunk = self.pair_a.numel() // PAIR_CHUNK - 1
@@ -690,7 +759,7 @@ class _ObsBuffers(_LMBuffers):
         if obs_w is not None:
             self.maskf[:n] *= obs_w[lists.k, lists.l]
         self.S_rows.zero_()
-        self._load_state(T_wc, points_w, fix_mask, odo_Minv, wo, grav_d, grav_w)
+        return points_w
 
     def _camera_points(self, T, X):
         """Each listed observation's rotation ``[N, 3, 3]`` and point in its
@@ -702,7 +771,6 @@ class _ObsBuffers(_LMBuffers):
         # the products per observation are a few elements wide, so they are
         # written out as broadcast products and sums, not batched matmuls
         T, X, K, L = self.T, self.X, self.K, self.L
-        kk, eye6 = self.kk, self.eye6
         fx, fy, cx, cy, bq = self.intrinsics
         dtype = X.dtype
         R, p_c = self._camera_points(T, X)
@@ -740,7 +808,7 @@ class _ObsBuffers(_LMBuffers):
         if self.landmark_sum is not None:
             S, H_pp, rhs = self.landmark_sum(S, H_pp, rhs)
         self.S.copy_(S)
-        self.S[kk, :, kk, :] += H_pp + lam * eye6
+        self.S[self.kk, :, self.kk, :] += H_pp + lam * self.eye6
         for dst, src in ((self.rhs, rhs), (self.Hll_inv, H_ll_inv), (self.b_l, b_l),
                          (self.W, H_pl)):
             dst.copy_(src)
@@ -751,14 +819,8 @@ class _ObsBuffers(_LMBuffers):
         dx = -(self.Hll_inv * (self.b_l + Wdp[self.lm_slots].sum(1))[:, None, :]).sum(-1)
         self.T_new, self.X_new = se3.apply_left_update(dp, self.T), self.X + dx
 
-    def total_chi2(self) -> None:
-        T, X = self.T_new, self.X_new
-        _, p_c = self._camera_points(T, X)
-        r = _project(p_c, self.obs_uv, *self.intrinsics)
-        chi2_l = _chi2(r, self.robust_w(r))
-        if self.landmark_sum is not None:
-            (chi2_l,) = self.landmark_sum(chi2_l)
-        self.chi2_new = chi2_l + self.odo_chi2(T) + self.grav_chi2(T)
+    def residuals(self, T, X):
+        return _project(self._camera_points(T, X)[1], self.obs_uv, *self.intrinsics)
 
 
 def _buffers(key, make, fits=None) -> _LMBuffers:
@@ -777,6 +839,23 @@ def _buffers(key, make, fits=None) -> _LMBuffers:
         while len(_buffer_sets) > LM_BUFFER_SETS:
             _buffer_sets.popitem(last=False)
     return lm
+
+
+def schur_route(K: int, dtype, device, use_schur_kernel: bool | None) -> type[_LMBuffers]:
+    """The route of a solve to its Schur system, as the buffer class that
+    holds it. ``use_schur_kernel=None``: the kernel route where
+    :func:`schur_kernel_auto` takes the window, the observation-list route
+    for ``K > SCHUR_KERNEL_TILED_MAX_K`` otherwise, the materialised route
+    for the rest; ``True``: the kernel route; ``False``: the materialised
+    route at any K. The kernel route is K4 / K5 on a CUDA device and their
+    plain versions elsewhere."""
+    device = torch.device(device)
+    kernel = _CardKernelBuffers if device.type == "cuda" else _KernelBuffers
+    if use_schur_kernel is None:
+        if schur_kernel_auto(K, dtype, device):
+            return kernel
+        return _ObsBuffers if K > SCHUR_KERNEL_TILED_MAX_K else _MaterialisedBuffers
+    return kernel if use_schur_kernel else _MaterialisedBuffers
 
 
 def bundle_adjust(
@@ -809,23 +888,17 @@ def bundle_adjust(
                                          # dInformationFactor = 1/z,
                                          # Cg2oOptimizer.cpp:1403-1466);
                                          # multiplies into the mask/robust
-                                         # weight on both routes
-    use_schur_kernel: bool | None = None,  # fused Schur assembly
-                                         # (ops.ba_kernel); None = by shape
-                                         # on a CUDA device, off on the CPU
+                                         # weight on every route
+    use_schur_kernel: bool | None = None,  # the route (schur_route)
     device=None,
     _landmark_sum=None,
 ) -> BAResult:
     """Windowed bundle adjustment. ``device=None`` means CUDA (raises
     without one); inputs are moved there and taken in the landmarks' dtype.
-    With ``use_schur_kernel=None``: K > 128 goes through the
-    observation-list route on every device; on a CUDA device K <= 32 goes
-    through kernel K4, K % 32 == 0 and K <= 128 through K5, anything else
-    through the materialised route (the CPU's route for K <= 128).
-    ``use_schur_kernel=False`` takes the materialised route at any K. A
-    kernel that fails to build or launch raises; nothing gives way to
-    another route. The results are the caller's own tensors: a later call
-    does not write into them.
+    :func:`schur_route` gives the route of ``use_schur_kernel`` at the
+    window's K, dtype and device. A kernel that fails to build or launch
+    raises; nothing gives way to another route. The results are the
+    caller's own tensors: a later call does not write into them.
 
     ``_landmark_sum`` is the hook of ``parallel.sharded_ba``: a function
     that takes tensors summed over this call's landmarks and returns their
@@ -852,19 +925,7 @@ def bundle_adjust(
         if use_odo:
             odo_Minv = se3.inv_T(_on(odo_M, dev, dtype)[: K - 1])
             wo = _on(odo_w, dev, dtype)[: K - 1]
-        if use_schur_kernel is None:
-            use_kernel = schur_kernel_auto(K, dtype, dev)
-            use_obs = not use_kernel and K > SCHUR_KERNEL_TILED_MAX_K
-        else:
-            use_kernel, use_obs = bool(use_schur_kernel), False
-        lists = None
-        if use_obs:
-            with span("svi.ba.obs_list", rid):
-                lists = _observation_lists(obs_mask)
-            with _lock:
-                _obs_counts["solves"] += 1
-                _obs_counts["observations"] += lists.k.numel()
-                _obs_counts["pairs"] += lists.pairs
+        route = schur_route(K, dtype, dev, use_schur_kernel)
         # a replay runs no operator in Python: not under the collective
         # hook, nor under a dispatch mode (the flop counter) that counts them
         replay = (dev.type == "cuda" and _landmark_sum is None
@@ -872,26 +933,16 @@ def bundle_adjust(
         intrinsics = _intrinsics(cam)
         # everything the stages take from the call: direct and replayed
         # sets are kept apart, since a direct run rebinds the outputs
-        key = (dev, threading.get_ident(), K, L, dtype, use_kernel, use_obs, use_odo,
-               use_grav, intrinsics, kernel_px2, replay)
-        if use_obs:
-            # a set whose capacities hold these lists serves them; else one
-            # that holds these and the last set's replaces it
-            need = lists.capacities
-            lm = _buffers(
-                key, lambda old: _ObsBuffers(
-                    dev, dtype, K, L, intrinsics, kernel_px2, use_odo, use_grav,
-                    need if old is None else tuple(map(max, need, old.capacities))),
-                fits=lambda lm: all(map(int.__ge__, lm.capacities, need)))
-        else:
-            lm = _buffers(key, lambda _: _LMBuffers(dev, dtype, K, L, intrinsics, kernel_px2,
-                                                    use_kernel, use_odo, use_grav))
+        key = (dev, threading.get_ident(), K, L, dtype, route, use_odo, use_grav, intrinsics,
+               kernel_px2, replay)
+        lm, prepared = route.take(key, obs_mask, rid, dev, dtype, K, L, intrinsics, kernel_px2,
+                                  use_odo, use_grav)
         lm.request = rid
         if replay and not lm.graphs:
             lm.capture()
         lm.load(T_wc, points_w, obs_uv, obs_mask, _on(obs_w, dev, dtype),
                 fix_mask, odo_Minv, wo, _on(grav_d, dev, dtype), _on(grav_w, dev, dtype),
-                **({"lists": lists} if use_obs else {}))
+                prepared)
         lm.landmark_sum = _landmark_sum
 
         with span("svi.ba.chi2", rid):

@@ -197,6 +197,39 @@ def test_kernel_gate_is_by_shape():
     assert t_ba.schur_kernel_auto(8, torch.float64, "cuda") is False
 
 
+_CARD, _PLAIN = "_CardKernelBuffers", "_KernelBuffers"
+_MAT, _OBS = "_MaterialisedBuffers", "_ObsBuffers"
+ROUTES = [
+    # use_schur_kernel=None, float32: by shape on the card, K > 128 listed everywhere
+    *[(K, torch.float32, "cuda", None, route, path) for K, route, path in (
+        (8, _CARD, "cuda:schur_assemble"), (32, _CARD, "cuda:schur_assemble"),
+        (40, _MAT, "torch:materialised"), (64, _CARD, "cuda:schur_assemble_tiled"),
+        (128, _CARD, "cuda:schur_assemble_tiled"), (136, _OBS, "torch:observation_list"),
+        (745, _OBS, "torch:observation_list"))],
+    *[(K, torch.float32, "cpu", None, _MAT if K <= 128 else _OBS,
+       "torch:materialised" if K <= 128 else "torch:observation_list")
+      for K in (8, 32, 40, 64, 128, 136, 745)],
+    # no kernel takes float64
+    (8, torch.float64, "cuda", None, _MAT, "torch:materialised"),
+    (745, torch.float64, "cuda", None, _OBS, "torch:observation_list"),
+    # forced either way
+    (745, torch.float32, "cuda", True, _CARD, "cuda:schur_assemble_tiled"),
+    (745, torch.float32, "cpu", True, _PLAIN, "torch:schur_assemble_tiled_plain"),
+    (8, torch.float32, "cpu", True, _PLAIN, "torch:schur_assemble_plain"),
+    (745, torch.float32, "cuda", False, _MAT, "torch:materialised"),
+    (745, torch.float32, "cpu", False, _MAT, "torch:materialised"),
+]
+
+
+@pytest.mark.parametrize("K,dtype,device,use,route,path", ROUTES)
+def test_schur_route_table(K, dtype, device, use, route, path):
+    """The one route decision of ``bundle_adjust``, by K, dtype, device and
+    ``use_schur_kernel``, and the name ``ops.paths.kernel_paths`` reports."""
+    got = t_ba.schur_route(K, dtype, device, use)
+    assert got is getattr(t_ba, route)
+    assert got.path(K) == path
+
+
 # ---------------------------------------------------------------------------
 # bundle_adjust
 # ---------------------------------------------------------------------------
