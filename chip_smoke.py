@@ -1122,7 +1122,7 @@ def ptxas_report(source: str, marker: str) -> list[dict]:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             # the plain name out of the mangled one, with its template value
-            plain = re.search(r"\d+([a-z_]+kernel)(?:ILi(\d+)E)?", m.group(1))
+            plain = re.search(r"\d+([a-z_][a-z0-9_]*kernel)(?:ILi(\d+)E)?", m.group(1))
             name = (plain.group(1) + (f"<{plain.group(2)}>" if plain.group(2) else "")
                     if plain else m.group(1))
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -1374,6 +1374,149 @@ def check_backend_kernels(device, timed: bool = True) -> list[dict]:
     return rows
 
 
+# the observed walk's kernels, as the trace names them
+WALK_KERNELS = ("observed_chi2_kernel", "observed_chi2_sum_kernel", "observed_update_kernel")
+# how far a walk entry may be from its plain version: the chi^2 relative
+# (both sum float32 terms in float64; the terms differ by the FMAs the
+# compiler forms), the landmarks' step relative to its largest entry (W^T dp
+# summed in float32 in another order)
+WALK_TOL = dict(chi2=1e-5, update=1e-4)
+
+
+def check_observed_walk_at(device, K: int, L: int, timed: bool, segment: bool = False,
+                           ordered: bool = False, padded: bool = False) -> dict:
+    """The observed walk's two entries at ``[K, L]`` against their plain
+    versions (``WALK_TOL``), no further from float64 than the plain
+    float32 versions (twice their error, or 1e-6 for the chi^2 and 1e-5 for
+    the step), the same bits twice, on the windows ``check_schur_kernel``
+    takes (``segment``: a map segment's visibility; ``ordered``: in
+    ``landmark_order``'s order, as the solver holds a solve on the card;
+    ``padded``: as ``models.slam`` pads a window). The back-substitution's
+    operands are K4 / K5's on the window, and a pose step with the fixed
+    pose's row zero. With ``timed``: each kernel's traced device time, the
+    bound, the plain versions' time and the parent's dense passes' time."""
+    import torch
+
+    from svi_mapper_tpu_torch.ops import ba_kernel, observed_walk, paths
+    from svi_mapper_tpu_torch.solvers import ba
+
+    if padded:
+        p = padded_ba_problem(K // 2 + 3, K, L * 3 // 4 - 5, L, seed=41 + K)
+    elif segment:
+        p = segment_ba_problem(K, L, seed=43 + K)
+    else:
+        p = ba_problem(K, L, seed=47 + K, noise=1.5, point_noise=0.1, hard=True)
+    to = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    T, X, obs, ow = to(p["T"]), to(p["X0"]), to(p["obs"]), to(p["mask"].astype("float32"))
+    if ordered:
+        perm, _ = ba_kernel.landmark_order(ow)
+        X, obs, ow = X[perm].contiguous(), obs[:, perm].contiguous(), ow[:, perm].contiguous()
+    fx, fy, cx, cy, bq = p["intr"]
+    cam = dict(fx=fx, fy=fy, cx=cx, cy=cy, bq=bq, kernel_px2=10.0)
+    assemble = ba_kernel.schur_assemble if K <= 32 else ba_kernel.schur_assemble_tiled
+    _, _, Hll_inv, b_l, W = [t.clone() for t in assemble(
+        T, X, obs, ow, 1e-3, **cam, point_damping=1e-6)]
+    g = torch.Generator().manual_seed(K * 7 + L)
+    dp = (torch.randn(K, 6, generator=g) * torch.tensor([1e-2] * 3 + [1e-3] * 3)).to(device)
+    dp[0] = 0.0
+    update_args = (W, dp, Hll_inv, b_l, X, ow)
+
+    chi2 = observed_walk.observed_chi2(T, X, obs, ow, **cam).clone()
+    chi2_again = observed_walk.observed_chi2(T, X, obs, ow, **cam)
+    X_new = observed_walk.observed_update(*update_args).clone()
+    X_new_again = observed_walk.observed_update(*update_args)
+    chi2_32 = observed_walk.observed_chi2_plain(T, X, obs, ow, **cam)
+    chi2_64 = observed_walk.observed_chi2_plain(T.double(), X.double(), obs.double(),
+                                                ow.double(), **cam)
+    X_new_32 = observed_walk.observed_update_plain(*update_args)
+    X_new_64 = observed_walk.observed_update_plain(*(t.double() for t in update_args))
+
+    # the parent's dense passes: _project -> robust_w -> _chi2 over every
+    # slot, and the einsum over the whole W planes
+    def dense_chi2():
+        r = ba._residuals(T, X, obs, fx, fy, cx, cy, bq)[0]
+        err2 = torch.sum(r * r, dim=-1)
+        w = torch.where(err2 > 10.0, 10.0 / torch.clamp(err2, min=1e-12), torch.ones_like(err2))
+        return ba._chi2(r, w * ow)
+
+    def dense_update():
+        Wt_dp = torch.einsum("bql,q->lb", W, dp.reshape(6 * K))
+        return X + -(Hll_inv @ (b_l + Wt_dp)[..., None])[..., 0]
+
+    chi2_dense, X_new_dense = dense_chi2(), dense_update()
+    torch.cuda.synchronize()
+
+    step64 = float((X_new_64 - X.double()).abs().max())
+    chi2_err = lambda a, b: abs(float(a) - float(b)) / abs(float(b))  # noqa: E731
+    step_err = lambda a, b: float((a.double() - b.double()).abs().max()) / step64  # noqa: E731
+    seen = ow > 0
+    out = dict(
+        K=K, L=L, segment=segment, ordered=ordered, padded=padded,
+        observed_slots=int(seen.sum()), total_slots=K * L,
+        chi2=float(chi2), same_bits_twice=bool(torch.equal(chi2, chi2_again)
+                                               and torch.equal(X_new, X_new_again)),
+        rel_err_vs_plain=dict(chi2=chi2_err(chi2, chi2_32), update=step_err(X_new, X_new_32)),
+        rel_err_vs_float64=dict(
+            kernel=dict(chi2=chi2_err(chi2, chi2_64), update=step_err(X_new, X_new_64)),
+            plain=dict(chi2=chi2_err(chi2_32, chi2_64), update=step_err(X_new_32, X_new_64)),
+            dense=dict(chi2=chi2_err(chi2_dense, chi2_64),
+                       update=step_err(X_new_dense, X_new_64))))
+    where = f"observed walk K={K} L={L} segment={segment} ordered={ordered} padded={padded}"
+    require(bool((~seen.any(0)).any()) and bool((~seen.any(1)).any() or not padded),
+            f"{where}: no unobserved landmark (or, padded, keyframe)")
+    require(torch.isfinite(chi2) and bool(torch.isfinite(X_new).all()), f"{where}: non-finite")
+    require(out["same_bits_twice"], f"{where}: two runs differ")
+    bad = {nm: e for nm, e in out["rel_err_vs_plain"].items() if not e < WALK_TOL[nm]}
+    require(not bad, f"{where}: off the plain version by {bad}")
+    floor = dict(chi2=1e-6, update=1e-5)
+    worse = {nm: (out["rel_err_vs_float64"]["kernel"][nm], out["rel_err_vs_float64"]["plain"][nm])
+             for nm in floor if out["rel_err_vs_float64"]["kernel"][nm]
+             > max(2 * out["rel_err_vs_float64"]["plain"][nm], floor[nm])}
+    require(not worse, f"{where}: further from float64 than the plain version: {worse}")
+    # an unobserved landmark's step: -Hll_inv b_l, with b_l 0: it stays
+    unseen = ~seen.any(0)
+    require(torch.equal(X_new[unseen], X[unseen]), f"{where}: an unobserved landmark moved")
+    if timed:
+        by_kernel = traced_device_ms_by_kernel(
+            lambda: (observed_walk.observed_chi2(T, X, obs, ow, **cam),
+                     observed_walk.observed_update(*update_args)), WALK_KERNELS)
+        out["device_ms_by_kernel"] = by_kernel
+        out["chi2_device_ms"] = (None if None in list(by_kernel.values())[:2]
+                                 else by_kernel[WALK_KERNELS[0]] + by_kernel[WALK_KERNELS[1]])
+        out["update_device_ms"] = by_kernel[WALK_KERNELS[2]]
+        for name, work in (("chi2", paths.observed_chi2_work(ow, K, L)),
+                           ("update", paths.observed_update_work(ow, K, L))):
+            out[f"{name}_bytes"], out[f"{name}_flops"] = work
+            out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = bound(*work)
+        out["chi2_plain_ms"] = time_ms(
+            lambda: observed_walk.observed_chi2_plain(T, X, obs, ow, **cam), 5, 1)
+        out["update_plain_ms"] = time_ms(
+            lambda: observed_walk.observed_update_plain(*update_args), 5, 1)
+        out["chi2_dense_device_ms"] = traced_device_ms(dense_chi2, ("",), 20)
+        out["update_dense_device_ms"] = traced_device_ms(dense_update, ("",), 20)
+    return out
+
+
+# the observed walk's windows: the segment cells' (ordered, as the solver
+# holds them, and in the generator's order), a segment at the card tests'
+# size, the back-end's window BA (8 x 1024 and 32 x 4096 on K4, 64 x 1024 on
+# K5, padded as the loop pads it) and ragged shapes
+WALK_SHAPES = [(128, 65536, dict(segment=True, ordered=True)),
+               (128, 65536, dict(segment=True)),
+               (128, BA_LANDMARKS, dict(segment=True, ordered=True)),
+               (32, BA_LANDMARKS, dict(ordered=True)),
+               (8, 1024, dict(ordered=True)),
+               (64, 1024, dict(padded=True, ordered=True)),
+               (1, 640, {}), (31, 4097, {})]
+
+
+def check_observed_walk(device, timed: bool = True) -> list[dict]:
+    """The observed walk at ``WALK_SHAPES`` (``timed=False``: none timed)."""
+    return [check_observed_walk_at(device, K, L, timed and K in (128, 32) and L >= BA_LANDMARKS,
+                                   **kw)
+            for K, L, kw in WALK_SHAPES]
+
+
 # ---------------------------------------------------------------------------
 # the map-optimisation path
 # ---------------------------------------------------------------------------
@@ -1420,6 +1563,7 @@ def run_bundle_adjust(device, K: int, iterations: int) -> dict:
     before = launch_counts()[name]
     graphs_before = ba.graph_counts()
     ba.reset_schur_schedule_counts()
+    ba.reset_observed_walk_counts()
     t0 = time.perf_counter()
     prep, res = run(iterations)
     torch.cuda.synchronize()
@@ -1427,6 +1571,7 @@ def run_bundle_adjust(device, K: int, iterations: int) -> dict:
     launches = launch_counts()[name] - before
     graphs = {k: v - graphs_before[k] for k, v in ba.graph_counts().items()}
     schedule = ba.schur_schedule_counts()
+    walk = ba.observed_walk_counts()
     its = int(res.iterations)
     err2, depth = ba.reprojection_stats(res.T_wc, res.points_w, t["obs_uv"],
                                         prep.mask, cam, device=device)
@@ -1443,6 +1588,11 @@ def run_bundle_adjust(device, K: int, iterations: int) -> dict:
     require(schedule["solves_ordered"] == 1
             and 0 < schedule["live_products"] <= schedule["total_products"],
             f"K={K}: schedule counts {schedule}")
+    # chi^2 and update walked the observed slots: the start's chi^2 and each
+    # iteration's
+    require(walk["chi2_passes"] == its + 1 and walk["update_passes"] == its
+            and 0 < walk["observed_slots"] <= walk["total_slots"] == K * BA_LANDMARKS,
+            f"K={K}: observed walk counts {walk}")
     require(np.isfinite(chi1) and chi1 < 0.2 * chi0, f"K={K}: chi2 {chi0} -> {chi1}")
     T_est = res.T_wc.cpu().numpy()
     pose_err = float(np.abs(T_est[:, :3, 3] - p["T"][:, :3, 3]).max())
@@ -1459,7 +1609,7 @@ def run_bundle_adjust(device, K: int, iterations: int) -> dict:
     require(bool(torch.isfinite(err2).all()), "reprojection_stats not finite")
     return dict(
         K=K, L=BA_LANDMARKS, kernel=name, iterations=its, launches=launches,
-        graph_replays=graphs["graph_replay"], schur_schedule=schedule,
+        graph_replays=graphs["graph_replay"], schur_schedule=schedule, observed_walk=walk,
         launches_per_iteration=launches / its, seconds=seconds,
         lm_iterations_per_s=its / seconds, ms_per_iteration=1e3 * seconds / its,
         chi2_initial=chi0, chi2_final=chi1, n_obs=int(prep.n_obs),
@@ -5056,6 +5206,12 @@ def main() -> int:
     require(not schur_build or all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                                    for r in schur_build),
             f"a kernel of schur_assemble.cu spills: {schur_build}")
+    walk = check_observed_walk(device)
+    walk_build = ptxas_report("observed_walk.cu", "kernel")
+    emit({"phase": "kernels_observed_walk", "tolerance": WALK_TOL, "shapes": walk,
+          "build": walk_build})
+    require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in walk_build),
+            f"a kernel of observed_walk.cu spills: {walk_build}")
 
     require(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                 for r in front_build["stereo_profiles.cu"]),

@@ -10,9 +10,14 @@ K2, K3 and K6 and their callers compare with the parent commit's?
     python3 mutation_check.py --loop-routes
 
 A developer's check, run from the repository root; needs one CUDA card and
-``nvcc``. For each named fault the package and ``chip_smoke.py`` are copied to
-a temporary directory, the fault is planted in the copy's source, and a
-check of ``chip_smoke`` runs in a process of its own: for
+``nvcc``. For each named fault the package, ``chip_smoke.py``, ``tests/``,
+``portbench/`` and ``BENCHMARK.json`` are copied to a temporary directory,
+the fault is planted in the copy's source, and a check runs in a process
+of its own: for
+``csrc/observed_walk.cu`` (the ``walk_*`` faults) the walk's card tests of
+``tests/test_torch_ba_graphs.py`` (their verdict is printed as
+``card_tests``) and then ``chip_smoke.check_observed_walk``; otherwise a
+check of ``chip_smoke``: for
 ``csrc/schur_assemble.cu`` ``check_backend_kernels`` (every shape of the
 ``kernels_backend`` phase), for ``csrc/hamming_matrix.cu`` (the ``pool_*``
 faults) ``check_closure_kernel``, for ``csrc/brief_dense.cu`` and its
@@ -21,7 +26,7 @@ faults) ``check_closure_kernel``, for ``csrc/brief_dense.cu`` and its
 ``csrc/round_pixel.cuh`` (``round_*``) ``check_kernels`` at the three
 shapes of the ``kernels_*`` phases. A fault is *caught* when that process
 fails. The unchanged copies (``control``, ``pool_control``,
-``stereo_control``, ``front_control``) must pass. Prints one
+``stereo_control``, ``front_control``, ``walk_control``) must pass. Prints one
 JSON line per fault and exits non-zero if a control fails or a fault that
 changes the result goes uncaught.
 
@@ -69,6 +74,12 @@ blur, two bits of a word swapped, one of a thread's stacked pixels reading
 its neighbour's row. The K1 faults (``track_*``): the band interval one
 column short at either end, the box as ``|dx| <= 7``, the fold dropped or
 at position 1.
+
+The walk faults (``walk_*``): the chi^2's or the update's walk stopping
+one keyframe short, the robust branch never taken, the last warp's partial
+left out of a landmark's W^T dp, the last block's partial left out of the
+chi^2 (a block the caller's order fills; in the solver's order the last
+block holds the unobserved landmarks).
 
 The Schur faults: the in-front test dropped, the robust branch never
 taken, two W rows swapped, the C operand's rows reversed, the split offset
@@ -148,6 +159,7 @@ ROUND_HEADER = CSRC / "round_pixel.cuh"
 BRIEF_SOURCE = CSRC / "brief_dense.cu"
 PATTERN_HEADER = CSRC / "brief_pattern.cuh"
 TRACK_SOURCE = CSRC / "track_scores.cu"
+WALK_SOURCE = CSRC / "observed_walk.cu"
 
 # name -> (text in the source, its replacement, changes the result?); the
 # source and the check follow from the name's prefix (SOURCES)
@@ -257,6 +269,20 @@ FAULTS = {
     "stereo_origin_off_by_one": (
         "s.x0 = min(max(s.u_r - (De - 1), 0), W - De);",
         "s.x0 = min(max(s.u_r - De, 0), W - De);", True),
+    "walk_control": (None, None, False),
+    "walk_chi2_one_keyframe_short": (
+        "for (int k = warp; k < K; k += WY) {\n            const float m",
+        "for (int k = warp; k < K - 1; k += WY) {\n            const float m", True),
+    "walk_update_one_keyframe_short": (
+        "for (int k = warp; k < K; k += WY) {\n            if (__ldg(obs_w",
+        "for (int k = warp; k < K - 1; k += WY) {\n            if (__ldg(obs_w", True),
+    "walk_robust_branch_never_taken": (
+        "err2 > cam.kernel_px2 ?", "err2 > 1e30f ?", True),
+    "walk_last_warp_left_out": (
+        "for (int y = 1; y < WY; ++y)", "for (int y = 1; y < WY - 1; ++y)", True),
+    "walk_last_block_left_out": (
+        "for (int i = threadIdx.x; i < n; i += SUM_THREADS)",
+        "for (int i = threadIdx.x; i + 1 < n; i += SUM_THREADS)", True),
     "pool_control": (None, None, False),
     "pool_norm_dropped": (
         "d[j][0] = q.norm0 + nb[j][0] - 2 * acc[j][0];",
@@ -308,6 +334,18 @@ CHECK = ("import torch, chip_smoke as c; "
          "c.check_backend_kernels(torch.device('cuda', 0), timed=False); print('PASSED')")
 HAMMING_CHECK = ("import torch, chip_smoke as c; "
                  "c.check_closure_kernel(torch.device('cuda', 0)); print('PASSED')")
+# the walk's card tests, then chip_smoke's check of it; the tests' verdict
+# is printed on its own line
+WALK_CHECK = """
+import subprocess, sys, torch, chip_smoke as c
+tests = subprocess.run([sys.executable, '-m', 'pytest', '-q', '-p', 'no:cacheprovider',
+                        'tests/test_torch_ba_graphs.py', '-k', 'walk'],
+                       capture_output=True, text=True)
+print('CARD_TESTS ' + ((tests.stdout.strip().splitlines() or [''])[-1]), flush=True)
+c.check_observed_walk(torch.device('cuda', 0), timed=False)
+if tests.returncode == 0:
+    print('PASSED')
+"""
 FRONT_CHECK = ("import torch, chip_smoke as c; d = torch.device('cuda', 0)\n"
                "for h, w, n, De in ((75, 203, 37, 48), (64, 96, 16, 128), "
                "(c.H, c.W_RAW, c.N_LANDMARKS, c.MAX_DISPARITY)):\n"
@@ -316,6 +354,7 @@ FRONT_CHECK = ("import torch, chip_smoke as c; d = torch.device('cuda', 0)\n"
 
 # fault-name prefix -> (the source it is planted in, the check that must fail)
 SOURCES = [("pool_", HAMMING_SOURCE, HAMMING_CHECK),
+           ("walk_", WALK_SOURCE, WALK_CHECK),
            ("stereo_", STEREO_SOURCE, FRONT_CHECK),
            ("round_", ROUND_HEADER, FRONT_CHECK),
            ("brief_pattern_", PATTERN_HEADER, FRONT_CHECK),
@@ -521,6 +560,12 @@ def run_in_copy(code: str, patches, source: Path = SOURCE) -> subprocess.Complet
         shutil.copytree(REPO / "svi_mapper_tpu_torch", copy / "svi_mapper_tpu_torch",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         shutil.copy(REPO / "chip_smoke.py", copy / "chip_smoke.py")
+        # the card tests and what they load
+        for tree in ("tests", "portbench"):
+            shutil.copytree(REPO / tree, copy / tree,
+                            ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+        for name in ("pytest.ini", "BENCHMARK.json"):
+            shutil.copy(REPO / name, copy / name)
         text = (copy / source).read_text()
         for old, new in patches:
             if text.count(old) != 1:
@@ -541,9 +586,12 @@ def run_fault(name: str) -> dict:
     proc = run_in_copy(check, patches, source)
     passed = proc.returncode == 0 and "PASSED" in proc.stdout
     last = (proc.stderr.strip().splitlines() or [""])[-1]
+    card_tests = next((ln[11:] for ln in proc.stdout.splitlines()
+                       if ln.startswith("CARD_TESTS ")), None)
     return {"fault": name, "changes_result": changes, "caught": not passed,
             "equivalent": old is not None and not changes,
-            "message": "" if passed else last[:300]}
+            "message": "" if passed else last[:300],
+            **({} if card_tests is None else {"card_tests": card_tests})}
 
 
 def time_instances() -> int:

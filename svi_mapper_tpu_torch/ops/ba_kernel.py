@@ -446,9 +446,7 @@ def schur_schedule(obs_w: torch.Tensor, sms: int | None = None) -> SchurSchedule
     fixed by the mask."""
     K, L = obs_w.shape
     dev = obs_w.device
-    if sms is None:
-        sms = _sm_count(dev.index) if dev.type == "cuda" else H100_SMS
-    t = schur_tiling(K, L, sms)
+    t = schur_tiling(K, L, _sms(dev) if sms is None else sms)
     n_g, T = t.n_groups, t.n_tiles
     seen = torch.zeros((n_g * t.g, t.nlt * LANDMARK_TILE), dtype=torch.bool, device=dev)
     seen[:K, :L] = obs_w != 0
@@ -508,6 +506,11 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _sms(dev: torch.device) -> int:
+    """The SM count of ``dev``'s card; the H100's for the CPU."""
+    return _sm_count(dev.index) if dev.type == "cuda" else H100_SMS
+
+
 def _counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     """The assembly's completion counters, one per landmark tile: zero
     between calls (the block a counter elects resets it), kept per device
@@ -548,8 +551,9 @@ def schur_out(K: int, L: int, dev: torch.device) -> tuple[torch.Tensor, torch.Te
     """The three kernels' output buffers for a ``[K, L]`` window on ``dev``:
     ``(buf, W)``, ``buf`` holding every region of
     :meth:`SchurTiling.layout`. A caller that passes them as ``out=`` to
-    every call of one window keeps its outputs at fixed addresses."""
-    lay = schur_tiling(K, L, _sm_count(dev.index)).layout()
+    every call of one window keeps its outputs at fixed addresses. On the
+    CPU they are laid out for an H100; no plain version takes them."""
+    lay = schur_tiling(K, L, _sms(dev)).layout()
     return (torch.empty(lay["total"][1], dtype=torch.float32, device=dev),
             torch.empty((3, 6 * K, L), dtype=torch.float32, device=dev))
 
@@ -559,7 +563,7 @@ def schur_views(out) -> tuple[torch.Tensor, ...]:
     of :func:`schur_out`, as views."""
     buf, W = out
     K, L = W.shape[1] // 6, W.shape[2]
-    lay = schur_tiling(K, L, _sm_count(W.device.index)).layout()
+    lay = schur_tiling(K, L, _sms(W.device)).layout()
     view = lambda name, *shape: buf.narrow(0, lay[name][0], lay[name][1]).view(shape)  # noqa: E731
     return (view("S", K, 6, K, 6), view("rhs", K, 6), view("Hll_inv", L, 3, 3),
             view("b_l", L, 3), W)

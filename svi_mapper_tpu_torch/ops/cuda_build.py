@@ -52,6 +52,11 @@ _SIGNATURES = {
     # part, rhs_part, count, schedule, K, L, ks, g, max_items, blocks, fx,
     # fy, cx, cy, bq, kernel_px2, damping, stream
     "svi_schur_system": [_P] * 16 + [_I] * 6 + [_F] * 7 + [_P],
+    # T, X, obs, obs_w, part, out, K, L, fx, fy, cx, cy, bq, kernel_px2,
+    # stream
+    "svi_observed_chi2": [_P] * 6 + [_I] * 2 + [_F] * 6 + [_P],
+    # W, dp, Hll_inv, b_l, X, obs_w, X_new, K, L, stream
+    "svi_observed_update": [_P] * 7 + [_I] * 2 + [_P],
     # a, b, out, B, N, M, stream
     "svi_hamming_matrix": [_P] * 3 + [_I] * 3 + [_P],
     # q_desc, q_valid, r_desc, r_valid, counts, B, P, C, Pr, cutoff, stream

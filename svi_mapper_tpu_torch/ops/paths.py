@@ -21,6 +21,9 @@ Call sites:
     per LM iteration, where ``solvers.ba.schur_route`` picks the kernel
     route; windows past 128 keyframes take the observation-list route and
     the others the materialised Jacobians, and launch neither;
+  * on the card's kernel route, the LM loop's ``total_chi2`` and ``update``
+    -> ``ops.observed_walk.observed_chi2`` / ``observed_update`` (the
+    observed walk), inside the stages' CUDA graphs;
   * ``mapping.closure._pool_nn_counts`` -> ``ops.hamming.pool_nn_counts``
     (K6, the fused pool-count entry);
   * the exact branch of ``mapping.closure.match_pools`` ->
@@ -158,6 +161,35 @@ def schur_work(mask, K: int, L: int) -> dict:
                 observations=n_obs)
 
 
+# float operations per observed (keyframe, landmark) slot of the observed
+# walk (csrc/observed_walk.cu): chi^2's point 18, projection 12, residuals
+# and err^2 11, robust weight and term 6; the update's W^T dp 36, and 21 a
+# landmark for X - Hll_inv (b_l + W^T dp)
+OBSERVED_CHI2_FLOPS = 47
+OBSERVED_UPDATE_FLOPS = 36
+
+
+def _observations(mask) -> int:
+    return int(torch.count_nonzero(torch.as_tensor(mask)))
+
+
+def observed_chi2_work(mask, K: int, L: int) -> tuple[int, int]:
+    """The observed walk's chi^2 on one window: the ``[K, L]`` weights read
+    whole, an observation's 16 bytes only where it is observed, the poses,
+    the landmarks and the sum; its operations per observation."""
+    n = _observations(mask)
+    return 4 * K * L + 16 * n + 64 * K + 12 * L + 4, OBSERVED_CHI2_FLOPS * n
+
+
+def observed_update_work(mask, K: int, L: int) -> tuple[int, int]:
+    """The observed walk's back-substitution: the weights read whole, the
+    18 W entries of each observation, the pose step, ``Hll_inv``, ``b_l``
+    and the landmarks in, the new landmarks out."""
+    n = _observations(mask)
+    return (4 * K * L + 72 * n + 24 * K + (36 + 12 + 12 + 12) * L,
+            OBSERVED_UPDATE_FLOPS * n + 21 * L)
+
+
 def hamming_matrix_work(B: int, N: int, M: int) -> tuple[int, int]:
     """K6's matrix: each descriptor read once, the matrix written once; the
     identity's operations (an AND or multiply and an add per pair and
@@ -182,11 +214,14 @@ def launch_counts_by_thread() -> dict[str, dict[str, int]]:
 
 def launch_counts() -> dict:
     """The wrappers' launch counters (six kernels, K2 and K6 with two
-    entries each), by entry name."""
+    entries each, and the observed walk's two entries), by entry name. The
+    walk's are its direct launches: its replays in the LM loop's graphs
+    run no Python (``solvers.ba.observed_walk_counts`` counts those)."""
     from svi_mapper_tpu_torch.ops import (
         ba_kernel,
         descriptors,
         hamming,
+        observed_walk,
         stereo_kernel,
         track_kernel,
     )
@@ -198,7 +233,9 @@ def launch_counts() -> dict:
             "schur_assemble": ba_kernel.schur_assemble_launches,
             "schur_assemble_tiled": ba_kernel.schur_assemble_tiled_launches,
             "hamming_matrix": hamming.hamming_matrix_launches,
-            "pool_nn_counts": hamming.pool_nn_counts_launches}
+            "pool_nn_counts": hamming.pool_nn_counts_launches,
+            "observed_chi2": observed_walk.observed_chi2_launches,
+            "observed_update": observed_walk.observed_update_launches}
 
 
 def reset_launch_counts() -> None:
@@ -206,6 +243,7 @@ def reset_launch_counts() -> None:
         ba_kernel,
         descriptors,
         hamming,
+        observed_walk,
         stereo_kernel,
         track_kernel,
     )
@@ -219,6 +257,8 @@ def reset_launch_counts() -> None:
         ba_kernel.schur_assemble_tiled_launches = 0
         hamming.hamming_matrix_launches = 0
         hamming.pool_nn_counts_launches = 0
+        observed_walk.observed_chi2_launches = 0
+        observed_walk.observed_update_launches = 0
         _by_thread.clear()
 
 

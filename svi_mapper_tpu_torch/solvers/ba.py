@@ -22,6 +22,9 @@ Three routes to the Schur system, each a class of buffer sets, of which
 ``ops.ba_kernel`` (K4 / K5 on the card, :class:`_CardKernelBuffers`; their
 plain versions elsewhere, :class:`_KernelBuffers`) and, for windows past
 the kernels' largest, the observation-list route (:class:`_ObsBuffers`).
+On the card the kernel route's chi^2 and back-substitution walk the
+observed (keyframe, landmark) slots only (``ops.observed_walk``); the other
+routes keep dense passes.
 
 The LM loop is a Python loop. One iteration reads two flags (accept, done)
 from the device in ONE transfer; the damping ``lam`` lives on the host as a
@@ -41,8 +44,8 @@ the sharded BA's collective hook (``_landmark_sum``) and under a
 ``TorchDispatchMode`` (which a replay would bypass) the same functions run
 directly. Two stages stay eager: the Schur assembly (K4 / K5 take ``lam``
 by value) and the linear solve (cuSOLVER). :func:`graph_counts`,
-:func:`obs_route_counts` and :func:`schur_schedule_counts` read one store
-of counters.
+:func:`obs_route_counts`, :func:`schur_schedule_counts` and
+:func:`observed_walk_counts` read one store of counters.
 
 Spans (``eval.timing.span``; nothing unless a profiler runs or a timer
 records) mark the call's stages, all with the call's request id:
@@ -74,7 +77,7 @@ from svi_mapper_tpu_torch.geometry import se3
 from svi_mapper_tpu_torch.geometry.camera import StereoCamera
 from svi_mapper_tpu_torch.geometry.linalg import cholesky_solve_or_nan
 from svi_mapper_tpu_torch.geometry.linalg import inv3x3 as _inv3x3
-from svi_mapper_tpu_torch.ops import ba_kernel
+from svi_mapper_tpu_torch.ops import ba_kernel, observed_walk
 from svi_mapper_tpu_torch.solvers.pose_graph import adjoint as _adjoint
 from svi_mapper_tpu_torch.utils.device import require_fp32_matmul, resolve_device
 
@@ -240,6 +243,28 @@ def reset_schur_schedule_counts() -> None:
     _reset("solves_ordered", "last_ordered")
 
 
+def observed_walk_counts() -> dict[str, int]:
+    """The card's kernel route's passes over the observed slots only
+    (``ops.observed_walk``) since the last :func:`reset_observed_walk_counts`,
+    over every thread: ``total_chi2`` and ``update`` stages run, replayed or
+    direct; and the observed and total (keyframe, landmark) slots of the
+    last ordered solve, the one :func:`schur_schedule_counts` reads (its
+    observed count read from the device here; 0 and 0 once its buffer set
+    is gone)."""
+    with _lock:
+        chi2, update, ref = (_counts["walk_chi2"], _counts["walk_update"],
+                             _counts.get("last_ordered"))
+    lm = None if ref is None else ref()
+    observed = None if lm is None else getattr(lm, "observed", None)
+    return dict(chi2_passes=chi2, update_passes=update,
+                observed_slots=0 if observed is None else int(observed),
+                total_slots=0 if observed is None else lm.K * lm.L)
+
+
+def reset_observed_walk_counts() -> None:
+    _reset("walk_chi2", "walk_update")
+
+
 class _LMBuffers:
     """One window shape's LM state and operands at fixed addresses, and the
     stages of an iteration, which read and write only these: what every
@@ -377,11 +402,16 @@ class _LMBuffers:
         dp = -cholesky_solve_or_nan(Sm.reshape(K * 6, K * 6), rhs.reshape(K * 6))
         torch.mul(dp.reshape(K, 6), free[:, None], out=self.dp)
 
+    def reprojection_chi2(self, T, X) -> torch.Tensor:
+        """The robust reprojection chi^2 of ``(T, X)`` over this call's
+        landmarks."""
+        r = self.residuals(T, X)
+        return _chi2(r, self.robust_w(r))
+
     def total_chi2(self) -> None:
         """The proposal's chi^2, into ``chi2_new``."""
         T, X = self.T_new, self.X_new
-        r = self.residuals(T, X)
-        chi2_l = _chi2(r, self.robust_w(r))
+        chi2_l = self.reprojection_chi2(T, X)
         if self.landmark_sum is not None:
             (chi2_l,) = self.landmark_sum(chi2_l)
         self.chi2_new = chi2_l + self.odo_chi2(T) + self.grav_chi2(T)
@@ -550,9 +580,19 @@ class _CardKernelBuffers(_KernelBuffers):
     """The kernel route on the card: K4 / K5 write into ``schur_out``'s
     buffers (``S`` .. ``W`` are views of them); a solve's landmarks are held
     in ``ba_kernel.landmark_order``'s order and the product's schedule is
-    made of it, once a solve (``order_landmarks``)."""
+    made of it, once a solve (``order_landmarks``). The reprojection chi^2
+    and the landmarks' back-substitution walk the observed slots only
+    (``ops.observed_walk``), into the set's ``chi2_l`` and ``X_new``."""
 
     STAGES = ("order_landmarks",) + _LMBuffers.STAGES
+    # the counter of observed_walk_counts each stage's runs add to
+    WALKS = {"total_chi2": "walk_chi2", "update": "walk_update"}
+
+    def __init__(self, dev, dtype, K, L, *settings):
+        super().__init__(dev, dtype, K, L, *settings)
+        self.chi2_l = torch.zeros((), dtype=dtype, device=dev)
+        self.chi2_part = torch.zeros(observed_walk.chi2_blocks(L), dtype=torch.float64,
+                                     device=dev)
 
     @classmethod
     def path(cls, K: int) -> str:
@@ -579,12 +619,29 @@ class _CardKernelBuffers(_KernelBuffers):
         self.perm, self.order = ba_kernel.landmark_order(self.maskf)
         self.maskf.copy_(self.maskf.index_select(1, self.perm))
         self.schedule = ba_kernel.schur_schedule(self.maskf)
+        self.observed = torch.count_nonzero(self.maskf)
 
     def points(self) -> torch.Tensor:
         return self.X.index_select(0, self.order)
 
     def _keep(self, *system) -> None:
         """Nothing: the kernels wrote the system into the set's buffers."""
+
+    def reprojection_chi2(self, T, X) -> torch.Tensor:
+        fx, fy, cx, cy, bq = self.intrinsics
+        return observed_walk.observed_chi2(
+            T, X, self.obs_uv, self.maskf, fx=fx, fy=fy, cx=cx, cy=cy, bq=bq,
+            kernel_px2=self.kernel_px2, out=self.chi2_l, scratch=self.chi2_part)
+
+    def update(self) -> None:
+        self.T_new = se3.apply_left_update(self.dp, self.T)
+        observed_walk.observed_update(self.W, self.dp, self.Hll_inv, self.b_l, self.X,
+                                      self.maskf, out=self.X_new)
+
+    def run(self, stage: str) -> None:
+        super().run(stage)
+        if stage in self.WALKS:
+            _count(**{self.WALKS[stage]: 1})
 
 
 # ---------------------------------------------------------------------------

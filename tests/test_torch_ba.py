@@ -40,12 +40,12 @@ def cams():
     return jcam, tp.torch_camera(jcam)
 
 
-def _hard_window(K, L, seed=0):
+def _hard_window(K, L, seed=0, **window):
     """A window that reaches every branch: 20 % dropped observations, some
     landmarks never observed, some unmasked observations of points behind
     (or almost in the plane of) the camera, residuals on both sides of the
-    robust kernel."""
-    w = tp.ba_window(K=K, L=L, seed=seed)
+    robust kernel. ``window``: further keywords of ``tp.ba_window``."""
+    w = tp.ba_window(K=K, L=L, seed=seed, **window)
     mask = w["mask"].copy()
     mask[:, :7] = False                                   # unobserved landmarks
     X = w["X"].copy()
@@ -491,6 +491,137 @@ def test_bundle_adjust_buffer_set_keeps_the_loops_bits(cams, route, K, L):
     for f in fields:
         assert torch.equal(getattr(alone, f), getattr(got[1], f)), f
     assert t_ba.graph_counts() == counts
+
+
+class _CardBuffersOnCpu(t_ba._CardKernelBuffers):
+    """The card's buffer set held on the CPU: its stages as on the card
+    (the landmark order, the observed walk, whose entries take their plain
+    versions here); the Schur system from the plain K4 / K5, copied into
+    the buffers the kernels write on the card."""
+
+    def assemble(self, lam, point_damping):
+        fx, fy, cx, cy, bq = self.intrinsics
+        S, rhs, H_ll_inv, b_l, W = self.assembler(self.K)(
+            self.T, self.X, self.obs_uv, self.maskf, lam, fx=fx, fy=fy, cx=cx, cy=cy, bq=bq,
+            kernel_px2=self.kernel_px2, point_damping=point_damping)
+        if self.landmark_sum is not None:
+            S, rhs = self.landmark_sum(S, rhs)
+        S[self.kk, :, self.kk, :] += lam * self.eye6
+        for dst, src in zip((self.S, self.rhs, self.Hll_inv, self.b_l, self.W),
+                            (S, rhs, H_ll_inv, b_l, W)):
+            dst.copy_(src)
+
+
+WALK_CASES = ["caller_order", "landmark_order", "obs_w", "keyframe_observing_nothing",
+              "fixed_pose", "tiled", "landmark_sum", "other_routes"]
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_observed_walk_matches_the_dense_passes(cams, case, monkeypatch):
+    """The observed walk (``ops.observed_walk``, plain versions on the CPU)
+    against the dense passes the other routes keep, on windows with
+    unobserved landmarks and points at z ~ 0: the chi^2 against
+    ``_chi2(r, robust_w(r))`` over ``_residuals`` (relative 1e-5: float32
+    terms summed in float64 against a float32 sum), the landmarks' step
+    against ``X - Hll_inv (b_l + W^T dp)`` with the einsum over the whole W
+    planes (1e-4 of the step: W^T dp summed in another order), unobserved
+    landmarks unmoved; then a solve through the card's buffer set held on
+    the CPU against the plain kernel route's (six iterations each, chi^2
+    within 1e-4, poses within 1e-4 and landmarks within 1e-3), its walk
+    counts, and with the sharded BA's hook (an identity sum here) the
+    hook-free solve's bits. ``other_routes``: the materialised, the plain
+    kernel and the observation-list routes never reach the walk
+    (``test_bundle_adjust_buffer_set_keeps_the_loops_bits`` holds the first
+    two to their bits as they were)."""
+    from svi_mapper_tpu_torch.ops import observed_walk
+
+    _, tcam = cams
+    # the tiled window's 64 keyframes 0.1 m apart, so that each sees the box
+    K, L, step = (64, 128, 0.1) if case == "tiled" else (8, 256, 0.8)
+    w = _hard_window(K, L, seed=31, step=step)
+    rng = np.random.default_rng(32)
+    obs_w = rng.uniform(0.3, 2.0, (K, L)).astype(np.float32) if case == "obs_w" else None
+    if case == "keyframe_observing_nothing":
+        w["mask"][3] = False
+    if case == "fixed_pose":
+        w["fix"][3] = True
+    T, X, obs, ow = _torch_args(w)
+    if obs_w is not None:
+        ow = ow * tp.t32(obs_w)
+    if case == "landmark_order":
+        perm, _ = t_bk.landmark_order(ow)
+        X, obs, ow = X[perm], obs[:, perm], ow[:, perm]
+    intr = _intr_kw(w)
+    fix = tp.tbool(w["fix"])
+
+    if case == "other_routes":
+        def refuse(*args, **kw):
+            raise AssertionError("the observed walk ran")
+
+        monkeypatch.setattr(observed_walk, "observed_chi2", refuse)
+        monkeypatch.setattr(observed_walk, "observed_update", refuse)
+        t_ba.reset_observed_walk_counts()
+        wide = tp.ba_window(K=136, L=256, seed=33, noise=0.5)
+        for window, use in ((w, False), (w, True), (wide, None)):
+            res = t_ba.bundle_adjust(
+                tp.t32(window["T"]), tp.t32(window["X"]), tp.t32(window["obs"]),
+                tp.tbool(window["mask"]), tcam, tp.tbool(window["fix"]), max_iterations=2,
+                use_schur_kernel=use, device="cpu")
+            assert int(res.iterations) == 2
+        assert t_ba.observed_walk_counts()["chi2_passes"] == 0
+        return
+
+    # the chi^2
+    r = t_ba._residuals(T, X, obs, *w["intr"])[0]
+    err2 = torch.sum(r * r, dim=-1)
+    robust = torch.where(err2 > 10.0, 10.0 / torch.clamp(err2, min=1e-12), torch.ones_like(err2))
+    dense = t_ba._chi2(r, robust * ow)
+    got = observed_walk.observed_chi2(T, X, obs, ow, **intr, kernel_px2=10.0)
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert float(got) == pytest.approx(float(dense), rel=1e-5)
+    out = torch.zeros(())
+    assert observed_walk.observed_chi2(T, X, obs, ow, **intr, kernel_px2=10.0, out=out) is out
+    assert torch.equal(out, got)
+
+    # the back-substitution
+    assemble = t_bk.schur_assemble if K <= 32 else t_bk.schur_assemble_tiled
+    _, _, Hll_inv, b_l, W = assemble(T, X, obs, ow, 1e-3, **intr)
+    dp = torch.from_numpy(rng.normal(0, 1e-2, (K, 6)).astype(np.float32))
+    dp[fix] = 0.0
+    Wt_dp = torch.einsum("bql,q->lb", W, dp.reshape(6 * K))
+    dense_X = X - (Hll_inv @ (b_l + Wt_dp)[..., None])[..., 0]
+    got_X = observed_walk.observed_update(W, dp, Hll_inv, b_l, X, ow)
+    step = float((dense_X - X).abs().max())
+    assert step > 0
+    assert float((got_X - dense_X).abs().max()) <= 1e-4 * step
+    unseen = ow.sum(0) == 0
+    assert bool(unseen.any()) and torch.equal(got_X[unseen], X[unseen])
+
+    # a solve through the card's buffer set, against the plain kernel route
+    def solve(**kw):
+        return t_ba.bundle_adjust(
+            *_torch_args(w)[:3], tp.tbool(w["mask"]), tcam, fix, max_iterations=6,
+            min_rel_improvement=0.0, obs_w=None if obs_w is None else tp.t32(obs_w),
+            device="cpu", **kw)
+
+    want = solve(use_schur_kernel=True)
+    with monkeypatch.context() as m:
+        m.setattr(t_ba, "schur_route", lambda *args: _CardBuffersOnCpu)
+        t_ba.reset_observed_walk_counts()
+        walked = solve()
+        counts = t_ba.observed_walk_counts()
+        if case == "landmark_sum":
+            hooked = solve(_landmark_sum=lambda *t: t)
+            for f in ("T_wc", "points_w", "chi2_initial", "chi2_final", "iterations"):
+                assert torch.equal(getattr(hooked, f), getattr(walked, f)), f
+    its = int(walked.iterations)
+    assert its == int(want.iterations) == 6
+    assert counts == dict(chi2_passes=its + 1, update_passes=its,
+                          observed_slots=int(torch.count_nonzero(ow)), total_slots=K * L)
+    assert float(walked.chi2_initial) == pytest.approx(float(want.chi2_initial), rel=1e-5)
+    assert float(walked.chi2_final) == pytest.approx(float(want.chi2_final), rel=1e-4)
+    assert float((walked.T_wc - want.T_wc).abs().max()) < 1e-4
+    assert float((walked.points_w - want.points_w).abs().max()) < 1e-3
 
 
 def test_bundle_adjust_respects_observation_mask(cams):

@@ -1,6 +1,8 @@
 """The LM loop's CUDA graphs (``solvers/ba.py``): on the card, the replayed
 stages against the same stages run directly, bit for bit; the capture and
-replay counts; the SE(3) helpers the graphs reach, under capture. The tests
+replay counts; the SE(3) helpers the graphs reach, under capture; the
+observed walk (``ops/observed_walk.py``) against its plain versions, a
+walked segment solve against the dense passes, and its counter. The tests
 marked ``gpu`` skip without a CUDA device. No JAX here: the comparisons are
 within the port (``tests/test_torch_ba.py`` holds the buffer sets to the
 loop as it was, on the CPU)."""
@@ -249,3 +251,117 @@ def test_kernel_route_orders_a_shuffled_segment():
     # the landmarks are the caller's: close to where the caller's started
     moved = np.linalg.norm(a["X"] - p.X.double().cpu().numpy(), axis=1)
     assert np.median(moved) < 1.0
+
+
+def _walk_operands(dev, order: str, seed: int):
+    """A 128 x 4,096 segment in the caller's (random) order or in
+    ``landmark_order``'s, its K5 back-substitution operands and a pose
+    step with the fixed pose's row zero: the walk's inputs."""
+    p, cam = _segment(dev, 4096, seed)
+    T, X, obs, ow = p.T, p.X, p.obs, p.mask.float()
+    if order == "ordered":
+        perm, _ = ba_kernel.landmark_order(ow)
+        X, obs, ow = X[perm].contiguous(), obs[:, perm].contiguous(), ow[:, perm].contiguous()
+    fx, fy, cx, cy, bq = ba._intrinsics(cam)
+    kw = dict(fx=fx, fy=fy, cx=cx, cy=cy, bq=bq, kernel_px2=10.0)
+    _, _, Hll_inv, b_l, W = [t.clone() for t in ba_kernel.schur_assemble_tiled(
+        T, X, obs, ow, 1e-3, **kw, point_damping=1e-6)]
+    g = torch.Generator().manual_seed(seed)
+    dp = (1e-2 * torch.randn(128, 6, generator=g)).to(dev)
+    dp[p.fix] = 0.0
+    return (T, X, obs, ow), kw, (W, dp, Hll_inv, b_l, X, ow)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["caller", "ordered"])
+def test_observed_walk_equals_its_plain_version_on_a_segment(order):
+    """The walk's two entries (``ops.observed_walk``) on a 128 x 4,096
+    segment, in the caller's order and in the solver's: the chi^2 within
+    1e-5 of the plain version's (both add float32 terms in float64), the
+    landmarks' step within 1e-4 of its largest entry (W^T dp summed in
+    float32 in another order), the same bits twice, and where nobody
+    observes a landmark it does not move."""
+    from svi_mapper_tpu_torch.ops import observed_walk
+
+    dev = _card()
+    chi2_args, kw, update_args = _walk_operands(dev, order, 2**33 + 29)
+    chi2 = observed_walk.observed_chi2(*chi2_args, **kw).clone()
+    X_new = observed_walk.observed_update(*update_args).clone()
+    assert torch.equal(chi2, observed_walk.observed_chi2(*chi2_args, **kw))
+    assert torch.equal(X_new, observed_walk.observed_update(*update_args))
+    want = observed_walk.observed_chi2_plain(*chi2_args, **kw)
+    assert abs(float(chi2) - float(want)) <= 1e-5 * float(want), (float(chi2), float(want))
+    X, ow = update_args[4], update_args[5]
+    X_want = observed_walk.observed_update_plain(*update_args)
+    step = float((X_want - X).abs().max())
+    assert step > 0
+    assert float((X_new - X_want).abs().max()) <= 1e-4 * step
+    unseen = ow.sum(0) == 0
+    assert bool(unseen.any()) and torch.equal(X_new[unseen], X[unseen])
+
+
+class _DenseCardBuffers(ba._CardKernelBuffers):
+    """The card's kernel route with the chi^2 and the back-substitution as
+    dense ``[K, L]`` passes, as they were before the observed walk."""
+
+    reprojection_chi2 = ba._LMBuffers.reprojection_chi2
+    update = ba._MaterialisedBuffers.update
+
+
+@pytest.mark.gpu
+def test_walked_segment_solve_meets_the_dense_passes(monkeypatch):
+    """A replayed solve of a 128 x 4,096 segment with the pose chain, as
+    the segment cells solve theirs, through the observed walk and through
+    the dense passes (on the same K5, landmark order and graphs): within
+    the segment cells' ``correct`` limits of each other; three replays an
+    iteration and two a solve."""
+    import json
+
+    from portbench.reference import compare
+
+    dev = _card()
+    p, cam = _segment(dev, 4096, 2**33 + 31)
+
+    def solve():
+        return ba.bundle_adjust(p.T, p.X, p.obs, p.mask, cam, p.fix, odo_M=p.odo_M,
+                                odo_w=p.odo_w, max_iterations=10,
+                                min_rel_improvement=0.0, device=dev)
+
+    ba.reset_graph_counts()
+    walked = solve()
+    replays = ba.graph_counts()["graph_replay"]
+    monkeypatch.setattr(ba, "schur_route", lambda *args: _DenseCardBuffers)
+    dense = solve()
+
+    def answer(r):
+        return dict(T=r.T_wc.double().cpu().numpy(), X=r.points_w.double().cpu().numpy(),
+                    chi2=float(r.chi2_final), iterations=int(r.iterations))
+
+    limits = json.loads((Path(__file__).parent.parent / "portbench" / "limits"
+                         / "kitti00-sv.segment-ba.json").read_text())
+    gaps = compare.numbers(answer(walked), answer(dense))
+    assert not compare.over_limits(gaps, limits), gaps
+    assert int(walked.iterations) == 10
+    assert float(walked.chi2_final) < 0.5 * float(walked.chi2_initial)
+    assert replays == 3 * 10 + 2
+
+
+@pytest.mark.gpu
+def test_observed_walk_counts_its_passes_and_slots():
+    """A window without the pose chain (as ``chip_smoke.py``'s BA windows):
+    two replays an iteration and two a solve, every chi^2 (the start's and
+    each iteration's) and every update a pass over the observed slots, and
+    the solve's observed and total slots."""
+    dev = _card()
+    p, cam = _segment(dev, 4096, 2**33 + 37)
+    ba.reset_graph_counts()
+    ba.reset_observed_walk_counts()
+    res = ba.bundle_adjust(p.T, p.X, p.obs, p.mask, cam, p.fix, max_iterations=6,
+                           min_rel_improvement=0.0, device=dev)
+    its = int(res.iterations)
+    assert ba.graph_counts()["graph_replay"] == 2 * its + 2
+    assert ba.observed_walk_counts() == dict(
+        chi2_passes=its + 1, update_passes=its,
+        observed_slots=int(p.mask.sum()), total_slots=128 * 4096)
+    ba.reset_observed_walk_counts()
+    assert ba.observed_walk_counts()["chi2_passes"] == 0

@@ -64,8 +64,8 @@ def test_module_layout_mirrors_the_jax_package():
     native_src = sorted(p.name for p in (REPO / "svi_mapper_tpu_torch" / "native" / "src").iterdir())
     assert native_src == sorted(p.name for p in (REPO / "svi_mapper_tpu" / "native" / "src").iterdir())
     sources = sorted(p.name for p in (REPO / "svi_mapper_tpu_torch" / "csrc").glob("*.cu"))
-    assert sources == ["brief_dense.cu", "hamming_matrix.cu", "schur_assemble.cu",
-                       "stereo_profiles.cu", "track_scores.cu"]
+    assert sources == ["brief_dense.cu", "hamming_matrix.cu", "observed_walk.cu",
+                       "schur_assemble.cu", "stereo_profiles.cu", "track_scores.cu"]
 
 
 def _public_names(root: Path) -> dict:
@@ -428,7 +428,8 @@ def test_kernel_paths_report():
     assert on_card["ba_schur_K256"] == "torch:observation_list"
     assert set(report["launches"]) == {
         "track_scores", "stereo_profiles", "stereo_match", "brief_dense_fused",
-        "schur_assemble", "schur_assemble_tiled", "hamming_matrix", "pool_nn_counts"}
+        "schur_assemble", "schur_assemble_tiled", "hamming_matrix", "pool_nn_counts",
+        "observed_chi2", "observed_update"}
     hamming.hamming_matrix_launches = 3
     assert paths.launch_counts()["hamming_matrix"] == 3
     paths.reset_launch_counts()
@@ -447,12 +448,13 @@ def test_launch_counts_from_two_threads_sum_exactly():
         ba_kernel,
         descriptors,
         hamming,
+        observed_walk,
         paths,
         stereo_kernel,
         track_kernel,
     )
 
-    for mod in (ba_kernel, descriptors, hamming, stereo_kernel, track_kernel):
+    for mod in (ba_kernel, descriptors, hamming, observed_walk, stereo_kernel, track_kernel):
         src = inspect.getsource(mod)
         assert "_launches +=" not in src and "paths.count_launch(__name__" in src
     paths.reset_launch_counts()
@@ -503,12 +505,12 @@ def test_kernel_build_needs_a_compiler():
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_build.load_library()
     assert [p.name for p in cuda_build.sources()] == [
-        "brief_dense.cu", "hamming_matrix.cu", "schur_assemble.cu",
+        "brief_dense.cu", "hamming_matrix.cu", "observed_walk.cu", "schur_assemble.cu",
         "stereo_profiles.cu", "track_scores.cu"]
     assert set(cuda_build._SIGNATURES) == {
         "svi_track_scores", "svi_stereo_profiles", "svi_stereo_match",
         "svi_brief_dense_fused", "svi_schur_system", "svi_hamming_matrix",
-        "svi_pool_nn_counts"}
+        "svi_pool_nn_counts", "svi_observed_chi2", "svi_observed_update"}
     # each exported name is defined, with as many parameters, in a source
     import re
     text = "".join(p.read_text() for p in cuda_build.sources())

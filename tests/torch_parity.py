@@ -152,17 +152,17 @@ def stereo_intrinsics(width: int = 640, height: int = 480, baseline: float = 0.5
 
 
 def ba_window(K=8, L=640, seed=0, noise=1.5, drop=0.2, width=640, height=480,
-              pose_noise=0.0):
-    """A seeded BA window: forward-moving keyframes over a box of landmarks,
-    noisy stereo observations with ``drop`` of them masked, perturbed
-    landmark estimates (and poses, with ``pose_noise``). Returns a dict of
-    numpy arrays: ``intr``, ``T_true``, ``T``, ``X_true``, ``X``, ``obs``,
-    ``mask``, ``fix``."""
+              pose_noise=0.0, step=0.8):
+    """A seeded BA window: keyframes moving forward ``step`` m each over a
+    box of landmarks, noisy stereo observations with ``drop`` of them
+    masked, perturbed landmark estimates (and poses, with ``pose_noise``).
+    Returns a dict of numpy arrays: ``intr``, ``T_true``, ``T``,
+    ``X_true``, ``X``, ``obs``, ``mask``, ``fix``."""
     fx, fy, cx, cy, bq = intr = stereo_intrinsics(width, height)
     rng = np.random.default_rng(seed)
     X = rng.uniform([-10, -3, 4], [10, 3, 40], (L, 3)).astype(np.float32)
     T = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
-    T[:, 2, 3] = -np.arange(K) * 0.8
+    T[:, 2, 3] = -np.arange(K) * step
     T[:, 0, 3] = rng.normal(0, 0.1, K)
     p_c = np.einsum("kij,lj->kli", T[:, :3, :3], X) + T[:, None, :3, 3]
     z = p_c[..., 2]
